@@ -1,0 +1,41 @@
+"""Architecture config registry: ``get_config(arch)`` / ``list_archs()``.
+
+Only olmo-1b is ported so far; the other architectures of the JAX
+package raise a ``KeyError`` that says so (ROADMAP.md, queue A).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_ARCHS = {
+    "olmo-1b": "olmo_1b",
+}
+
+# architectures of the JAX package that the port does not serve yet
+NOT_YET_PORTED = (
+    "whisper-base", "phi-3-vision-4.2b", "recurrentgemma-9b",
+    "falcon-mamba-7b", "mixtral-8x7b", "deepseek-moe-16b", "granite-8b",
+    "qwen1.5-32b", "gemma3-12b",
+)
+
+
+def list_archs():
+    return list(_ARCHS)
+
+
+def _mod(arch: str):
+    if arch not in _ARCHS:
+        if arch in NOT_YET_PORTED:
+            raise KeyError(f"arch {arch!r} is not yet ported to PyTorch "
+                           f"(see ROADMAP.md); ported: {list(_ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
+
+
+def get_config(arch: str):
+    return _mod(arch).CONFIG
+
+
+def get_smoke_config(arch: str):
+    return _mod(arch).SMOKE

@@ -1,0 +1,129 @@
+"""Model configuration for the PyTorch port (counterpart of
+``repro/models/config.py``).
+
+The same frozen dataclass and field names as the JAX package, for the
+fields the dense decoder reads and the features it still refuses.
+Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
+``remat*``, cost-probe overrides, sharding padding) are dropped: the port
+picks its kernels by the device a tensor lives on, not by a flag.
+
+Layer-kind strings used in ``pattern``:
+  "attn"   full (global) causal self-attention
+  "local"  sliding-window causal self-attention (window = ``window_size``)
+  "swa"    alias of "local"
+  "rec"    RG-LRU recurrence block (not yet ported, see ROADMAP.md)
+  "mamba"  Mamba-1 selective-SSM block (not yet ported, see ROADMAP.md)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+ATTN_KINDS = ("attn", "local", "swa", "global")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    pattern: Tuple[str, ...] = ("attn",)
+    window_size: int = 0             # for "local"/"swa" layers
+    rope_theta: float = 10_000.0
+    rope_theta_local: float = 0.0    # 0 -> same as rope_theta
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    norm: str = "rmsnorm"            # rmsnorm | layernorm | nonparam_ln
+    glu: bool = True                 # gated (SwiGLU/GeGLU) FFN; False -> plain MLP
+    act: str = "silu"                # silu | gelu
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma-style sqrt(d) embedding multiplier
+    # ---- features not yet ported (check_supported refuses them) ----
+    num_experts: int = 0
+    is_encoder_decoder: bool = False
+    frontend: str = ""               # "" | "audio" | "vision"
+    kv_quant: str = "none"           # none | int8
+    # ---- numerics ----
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    attn_block_k: int = 512          # KV block of the plain chunked attention
+
+    # ---------------- derived ----------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """The embedding's row count: the vocabulary itself (the JAX
+        package pads it for sharding, which the port does not do yet)."""
+        return self.vocab_size
+
+    @property
+    def theta_local(self) -> float:
+        return self.rope_theta_local or self.rope_theta
+
+    @property
+    def param_torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def compute_torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    def stages(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+        """(pattern, repeats) segments covering num_layers exactly."""
+        p = self.pattern
+        reps, rem = divmod(self.num_layers, len(p))
+        out = []
+        if reps:
+            out.append((p, reps))
+        if rem:
+            out.append((p[:rem], 1))
+        return tuple(out)
+
+    def num_params(self) -> int:
+        """Analytic parameter count of a dense stack."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.vocab_size * d
+        if not self.tie_embeddings:
+            n += d * self.vocab_size
+        attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+            + self.num_heads * hd * d
+        if self.qkv_bias:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        ffn = (3 if self.glu else 2) * d * self.d_ff
+        return n + self.num_layers * (attn + ffn)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def check_supported(cfg: ModelConfig):
+    """Raise for what the port does not run yet (ROADMAP.md, queue A)."""
+    missing = []
+    if cfg.num_experts:
+        missing.append("MoE FFN")
+    if cfg.is_encoder_decoder:
+        missing.append("encoder-decoder cross-attention")
+    if cfg.frontend:
+        missing.append(f"{cfg.frontend} frontend")
+    if cfg.kv_quant != "none":
+        missing.append(f"kv_quant={cfg.kv_quant!r}")
+    for kind in cfg.pattern:
+        if kind not in ATTN_KINDS:
+            missing.append(f"layer kind {kind!r}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not yet ported to PyTorch "
+            "(see ROADMAP.md, queue A)")

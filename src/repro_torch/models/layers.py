@@ -1,0 +1,311 @@
+"""Layer primitives of the dense decoder (port of ``repro/models/layers.py``).
+
+Plain functions on tensors with the JAX package's parameter layout
+(``wq`` is (d, H, hd), ``wo`` is (H, hd, d), ...), so weights carried over
+by ``repro_torch.params.from_jax`` run unchanged.  Full-sequence attention
+goes through ``kernels.flash_attention`` and decode attention through
+``kernels.decode_attention``: the CUDA kernels for tensors on the GPU,
+their plain versions for tensors on the CPU.  The chunked attention of
+chunked prefill has no kernel in the JAX package either and stays plain
+PyTorch here.
+
+bf16 rounds where the JAX package rounds: norms and rope in f32 and cast
+back, projections as bf16 products.  MoE, Mamba, RG-LRU, cross-attention
+and the int8 KV cache are not ported yet (``config.check_supported``).
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+
+from .config import ModelConfig
+
+F32 = torch.float32
+NEG = -1e30
+
+
+def positions_vector(pos, B: int, device) -> torch.Tensor:
+    """A scalar or per-row position as an int32 (B,) tensor on ``device``
+    (no copy when it already is one)."""
+    return torch.broadcast_to(
+        torch.as_tensor(pos, dtype=torch.int32, device=device), (B,))
+
+
+# --------------------------------------------------------------------------
+# normalisation
+# --------------------------------------------------------------------------
+def init_norm(cfg: ModelConfig, d: int, lead=(), device=None):
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones((*lead, d), dtype=F32, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((*lead, d), dtype=F32, device=device),
+                "bias": torch.zeros((*lead, d), dtype=F32, device=device)}
+    return {}  # nonparam_ln (OLMo)
+
+
+def norm_apply(cfg: ModelConfig, p, x):
+    dt = x.dtype
+    x = x.to(F32)
+    if cfg.norm == "rmsnorm":
+        x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + 1e-6)
+        x = x * p["scale"]
+    else:
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).square().mean(dim=-1, keepdim=True)
+        x = (x - mu) * torch.rsqrt(var + 1e-5)
+        if p:
+            x = x * p["scale"] + p["bias"]
+    return x.to(dt)
+
+
+def rms_head_norm(scale, x):
+    """Per-head RMS norm (qk-norm); x: (..., hd)."""
+    dt = x.dtype
+    x = x.to(F32)
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + 1e-6)
+    return (x * scale).to(dt)
+
+
+# --------------------------------------------------------------------------
+# rotary positions
+# --------------------------------------------------------------------------
+def rope_apply(x, positions, theta: float):
+    """x: (B, S, H, hd), positions: (B, S) or (S,) int."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
+                      / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(F32) * freqs               # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# plain attention (chunked prefill; the CPU oracle of the decode kernel)
+# --------------------------------------------------------------------------
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset=0, kv_valid_len=None, block_k: int = 512,
+                      scale: float | None = None):
+    """Online-softmax attention over KV blocks of ``block_k``.
+
+    q: (B, Sq, H, hd);  k, v: (B, Sk, KH, hd) with H % KH == 0.
+    ``q_offset``: absolute position of q[0], scalar or per row (B,).
+    ``window`` > 0: sliding-window mask  q_pos - k_pos < window.
+    ``kv_valid_len``: mask out k positions >= this.
+    Returns (B, Sq, H, hd) in q.dtype.  The last block is not padded: a
+    row with at least one visible key gets the JAX package's result.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else hd ** -0.5
+    bk = min(block_k, Sk)
+    q_off = positions_vector(q_offset, B, q.device)
+    q_pos = q_off[:, None] + torch.arange(Sq, device=q.device)[None, :]
+    valid_limit = Sk if kv_valid_len is None else kv_valid_len
+    qg = (q.to(F32) * scale).reshape(B, Sq, KH, G, hd)
+
+    m = torch.full((B, KH, G, Sq), NEG, dtype=F32, device=q.device)
+    l = torch.zeros((B, KH, G, Sq), dtype=F32, device=q.device)
+    acc = torch.zeros((B, KH, G, Sq, hd), dtype=F32, device=q.device)
+    for start in range(0, Sk, bk):
+        kblk = k[:, start:start + bk].to(F32)
+        vblk = v[:, start:start + bk].to(F32)
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, kblk)
+        k_pos = start + torch.arange(kblk.shape[1], device=q.device)
+        mask = (k_pos[None, None, :] < valid_limit).expand(B, Sq, -1)
+        if causal:
+            mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+        if window:
+            mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+        s = s + torch.where(mask[:, None, None], 0.0, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqt,btkh->bkgqh", p,
+                                                   vblk)
+        m = m_new
+    out = acc / l.clamp_min(1e-37)[..., None]                # (B,KH,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
+                     scale: float | None = None):
+    """Single-step attention over a cache, the layer-level plain form.
+
+    q: (B, 1, H, hd); caches: (B, Smax, KH, hd); pos: scalar or (B,) —
+    the current token's absolute position (its K/V already written)."""
+    B, _, H, hd = q.shape
+    Smax, KH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else hd ** -0.5
+    qg = (q.to(F32) * scale).reshape(B, KH, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(F32))
+    pos_b = positions_vector(pos, B, q.device)
+    k_pos = torch.arange(Smax, device=q.device)
+    mask = k_pos[None, :] <= pos_b[:, None]
+    if window:
+        mask = mask & (pos_b[:, None] - k_pos[None, :] < window)
+    s = s + torch.where(mask[:, None, None], 0.0, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskh->bkgh", p / l.clamp_min(1e-37),
+                       v_cache.to(F32))
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention block (proj + rope + residual-ready output)
+# --------------------------------------------------------------------------
+def normal_init(shape, std, dtype, generator, device):
+    x = torch.randn(shape, generator=generator, dtype=F32, device=device)
+    return (x * std).to(dtype)
+
+
+def init_attention(cfg: ModelConfig, generator, lead=(), device=None):
+    """Attention weights (stacked over ``lead``) drawn like the JAX init:
+    N(0, 1) scaled by fan-in^-0.5, cast to ``param_dtype``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    dt = cfg.param_torch_dtype
+    sd = d ** -0.5
+    p = {
+        "wq": normal_init((*lead, d, H, hd), sd, dt, generator, device),
+        "wk": normal_init((*lead, d, KH, hd), sd, dt, generator, device),
+        "wv": normal_init((*lead, d, KH, hd), sd, dt, generator, device),
+        "wo": normal_init((*lead, H, hd, d), (H * hd) ** -0.5, dt, generator,
+                      device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, H, hd), dtype=dt, device=device)
+        p["bk"] = torch.zeros((*lead, KH, hd), dtype=dt, device=device)
+        p["bv"] = torch.zeros((*lead, KH, hd), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, hd), dtype=F32, device=device)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=F32, device=device)
+    return p
+
+
+def _project(x, w):
+    """x: (B, S, d) @ w: (d, N, hd) -> (B, S, N, hd)."""
+    d, n, hd = w.shape
+    return (x @ w.reshape(d, n * hd)).view(*x.shape[:-1], n, hd)
+
+
+def attn_qkv(cfg: ModelConfig, p, x, positions, kind: str, rope: bool = True):
+    """Project to q, k, v (+bias, qk-norm, rope)."""
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    if rope:
+        theta = cfg.rope_theta if kind in ("attn", "global") else cfg.theta_local
+        q = rope_apply(q, positions, theta)
+        k = rope_apply(k, positions, theta)
+    return q, k, v
+
+
+def attn_out(p, o):
+    H, hd, d = p["wo"].shape
+    return o.reshape(*o.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.window_size if kind in ("local", "swa") else 0
+
+
+def self_attention_train(cfg: ModelConfig, p, x, kind: str, positions,
+                         causal: bool = True):
+    q, k, v = attn_qkv(cfg, p, x, positions, kind)
+    o = flash_ops.flash_attention(q, k, v, causal=causal,
+                                  window=_window(cfg, kind))
+    return attn_out(p, o), (k, v)
+
+
+def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos):
+    """x: (B, 1, d). cache: {"k","v"}: (B, Smax, KH, hd). Returns (y, cache).
+
+    The new K/V are written in place at ``cache[b, pos[b]]``.  (The JAX
+    package rebuilds the whole cache with a masked ``where`` so the write
+    stays local to a sequence-sharded cache; the values written are the
+    same and every other row is left as it was.)
+    """
+    B = x.shape[0]
+    pos_b = positions_vector(pos, B, x.device)
+    q, k, v = attn_qkv(cfg, p, x, pos_b[:, None], kind)
+    rows = torch.arange(B, device=x.device)
+    at = pos_b.long()
+    cache["k"][rows, at] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
+    o = decode_ops.decode_attention(q, cache["k"], cache["v"], pos_b,
+                                    window=_window(cfg, kind))
+    return attn_out(p, o), cache
+
+
+def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off):
+    """Chunked prefill: a chunk of C prompt tokens against an existing
+    cache.  x: (B, C, d); off: int, or (B,) — tokens already cached per
+    row.  The chunk's K/V are written in place at ``[off, off + C)``
+    (positions past the cache are dropped, as in the JAX package, whose
+    gather-select rewrites the whole cache instead)."""
+    B, C, _ = x.shape
+    off_b = positions_vector(off, B, x.device)
+    positions = off_b[:, None] + torch.arange(C, device=x.device)[None, :]
+    q, k, v = attn_qkv(cfg, p, x, positions, kind)
+    Smax = cache["k"].shape[1]
+    if isinstance(off, numbers.Integral):
+        n = max(0, min(C, Smax - int(off)))
+        cache["k"][:, off:off + n] = k[:, :n].to(cache["k"].dtype)
+        cache["v"][:, off:off + n] = v[:, :n].to(cache["v"].dtype)
+    else:
+        at = positions.long()
+        keep = at < Smax
+        rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
+        cache["k"][rows[keep], at[keep]] = k[keep].to(cache["k"].dtype)
+        cache["v"][rows[keep], at[keep]] = v[keep].to(cache["v"].dtype)
+    o = chunked_attention(q, cache["k"], cache["v"], causal=True,
+                          window=_window(cfg, kind), q_offset=off_b,
+                          block_k=cfg.attn_block_k)
+    return attn_out(p, o), cache
+
+
+# --------------------------------------------------------------------------
+# dense FFN
+# --------------------------------------------------------------------------
+def init_ffn(cfg: ModelConfig, generator, lead=(), device=None):
+    d, f = cfg.d_model, cfg.d_ff
+    dt = cfg.param_torch_dtype
+    p = {"w1": normal_init((*lead, d, f), d ** -0.5, dt, generator, device),
+         "w2": normal_init((*lead, f, d), f ** -0.5, dt, generator, device)}
+    if cfg.glu:
+        p["w3"] = normal_init((*lead, d, f), d ** -0.5, dt, generator, device)
+    return p
+
+
+def _act(cfg: ModelConfig, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def ffn_apply(cfg: ModelConfig, p, x):
+    h = _act(cfg, x @ p["w1"])
+    if cfg.glu:
+        h = h * (x @ p["w3"])
+    return h @ p["w2"]

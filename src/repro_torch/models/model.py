@@ -1,0 +1,196 @@
+"""Stack assembly for the dense decoder: train forward, prefill, chunked
+prefill and decode (port of ``repro/models/model.py``).
+
+Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
+"stages": [{"b0": {...}, ...}, ...]}`` with each stage's weights stacked
+along a leading ``repeats`` axis (see ``ModelConfig.stages``).  Where the
+JAX package scans over that axis, the port loops over it.  Caches keep
+the same stage structure, (repeats, B, S, KH, hd) per stage, and decode
+and chunked prefill write them in place and return them.
+
+Batch dict convention: ``tokens`` (B, S) int token ids (-1 pads).
+Parameters are drawn by ``repro_torch.params.init_params``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+from .config import ATTN_KINDS, ModelConfig, check_supported
+
+F32 = torch.float32
+
+
+def _index(tree, r: int):
+    """Repeat ``r`` of a stacked stage tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# --------------------------------------------------------------------------
+# single-layer application (shared by train / prefill / decode / extend)
+# --------------------------------------------------------------------------
+def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
+                pos=None, cache=None, causal=True, cache_len=0):
+    """Returns (x, new_cache)."""
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not yet ported "
+                                  "to PyTorch (see ROADMAP.md, queue A)")
+    new_cache = {}
+    h = L.norm_apply(cfg, p.get("ln1", {}), x)
+    if mode == "decode":
+        y, new_attn = L.self_attention_decode(cfg, p["attn"], h, kind,
+                                              cache["attn"], pos)
+    elif mode == "extend":
+        y, new_attn = L.self_attention_extend(cfg, p["attn"], h, kind,
+                                              cache["attn"], pos)
+    else:
+        y, (k, v) = L.self_attention_train(cfg, p["attn"], h, kind,
+                                           positions, causal=causal)
+        if mode == "prefill":
+            pad = (0, 0, 0, 0, 0, cache_len - k.shape[1])
+            new_attn = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    x = x + y
+    h2 = L.norm_apply(cfg, p.get("ln2", {}), x)
+    x = x + L.ffn_apply(cfg, p["ffn"], h2)
+    if mode in ("prefill", "decode", "extend"):
+        new_cache["attn"] = new_attn
+    return x, new_cache
+
+
+# --------------------------------------------------------------------------
+# stage execution (a loop over stacked repeats)
+# --------------------------------------------------------------------------
+def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
+                positions, pos=None, caches=None, causal=True, cache_len=0):
+    """pattern_list: list of (pattern, repeats) matching stages_params.
+    Returns (x, caches): in decode/extend the given caches (written in
+    place), in prefill new ones, in train None per stage."""
+    new_caches = []
+    for si, ((pattern, repeats), sp) in enumerate(
+            zip(pattern_list, stages_params)):
+        stage_cache = None if caches is None else caches[si]
+        rep_caches = []
+        for r in range(repeats):
+            lp = _index(sp, r)
+            lc = None if stage_cache is None else _index(stage_cache, r)
+            ncs = {}
+            for j, kind in enumerate(pattern):
+                x, ncs[f"b{j}"] = apply_layer(
+                    cfg, kind, lp[f"b{j}"], x, mode=mode,
+                    positions=positions, pos=pos,
+                    cache=None if lc is None else lc[f"b{j}"],
+                    causal=causal, cache_len=cache_len)
+            rep_caches.append(ncs)
+        if mode == "prefill":
+            new_caches.append(_stack(rep_caches))
+        else:
+            new_caches.append(stage_cache)
+    return x, new_caches
+
+
+# --------------------------------------------------------------------------
+# embedding / head
+# --------------------------------------------------------------------------
+def _embed_tokens(cfg: ModelConfig, params, tokens):
+    # token -1 (embed padding) takes row V-1 as jnp.take does; the pooling
+    # mask of the embed step drops it
+    x = params["embed"][tokens.remainder(params["embed"].shape[0])]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x.to(cfg.compute_torch_dtype)
+
+
+def _logits(cfg: ModelConfig, params, x):
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    return logits.to(F32)
+
+
+def _assemble_input(cfg: ModelConfig, params, batch):
+    """Token embeddings.  Returns (x, positions)."""
+    check_supported(cfg)
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return x, positions
+
+
+# --------------------------------------------------------------------------
+# public entry points
+# --------------------------------------------------------------------------
+def forward_train(cfg: ModelConfig, params, batch):
+    """Full-sequence teacher-forced forward. Returns (logits, aux); aux is
+    the MoE router loss of the JAX package, 0 for a dense stack."""
+    x, positions = _assemble_input(cfg, params, batch)
+    x, _ = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
+                       mode="train", positions=positions)
+    x = L.norm_apply(cfg, params.get("final_norm", {}), x)
+    return _logits(cfg, params, x), torch.zeros((), dtype=F32,
+                                                device=x.device)
+
+
+def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
+    """Zero cache matching the stage structure."""
+    check_supported(cfg)
+    dt = cfg.compute_torch_dtype
+    hd, KH = cfg.resolved_head_dim, cfg.num_kv_heads
+    return [
+        {f"b{j}": {"attn": {
+            "k": torch.zeros((repeats, B, cache_len, KH, hd), dtype=dt,
+                             device=device),
+            "v": torch.zeros((repeats, B, cache_len, KH, hd), dtype=dt,
+                             device=device)}}
+         for j in range(len(pattern))}
+        for pattern, repeats in cfg.stages()
+    ]
+
+
+def prefill(cfg: ModelConfig, params, batch, cache_len: int):
+    """Process the prompt; returns (last-token logits, cache, next_pos)."""
+    x, positions = _assemble_input(cfg, params, batch)
+    x, caches = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
+                            mode="prefill", positions=positions,
+                            cache_len=cache_len)
+    x = L.norm_apply(cfg, params.get("final_norm", {}), x)
+    logits = _logits(cfg, params, x[:, -1:])
+    return logits, caches, x.shape[1]
+
+
+def prefill_chunk(cfg: ModelConfig, params, tokens, cache, off):
+    """Chunked prefill: extend the cache with C prompt tokens.  tokens:
+    (B, C) int; off: int or (B,) tokens already cached.  Returns (logits
+    (B, C, V), cache) — the cache given, written in place."""
+    check_supported(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    x, caches = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
+                            mode="extend", positions=None, pos=off,
+                            caches=cache)
+    x = L.norm_apply(cfg, params.get("final_norm", {}), x)
+    return _logits(cfg, params, x), caches
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos):
+    """One decode step.  tokens: (B, 1) int; pos: int or (B,) position of
+    this token.  Returns (logits (B, 1, V), cache) — the cache given,
+    written in place."""
+    check_supported(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    pos = L.positions_vector(pos, x.shape[0], x.device)
+    x, caches = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
+                            mode="decode", positions=None, pos=pos,
+                            caches=cache)
+    x = L.norm_apply(cfg, params.get("final_norm", {}), x)
+    return _logits(cfg, params, x), caches

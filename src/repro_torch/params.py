@@ -1,0 +1,112 @@
+"""Model weights for the port: a seeded draw, weights carried over from
+the JAX package, and the reader of its ``.npz`` checkpoints.
+
+The port keeps the JAX package's parameter pytree (nested dicts, stacked
+per stage, see ``models/model.py``) with ``torch.Tensor`` leaves.
+``jax.random`` and ``torch`` draw different numbers from one seed, so the
+parity tests carry the JAX weights across with ``from_jax``; ``init_params``
+is the port's own draw at the same shapes and scales, for runs without
+JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig, check_supported
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Weights at the JAX init's shapes and scales (N(0, 1) times
+    fan-in^-0.5, cast to ``param_dtype``), drawn from ``generator``, which
+    must live on ``device``."""
+    check_supported(cfg)
+    Vp, d = cfg.padded_vocab, cfg.d_model
+    params = {
+        "embed": L.normal_init((Vp, d), d ** -0.5, cfg.param_torch_dtype,
+                           generator, device),
+        "final_norm": L.init_norm(cfg, d, device=device),
+        "stages": [
+            {f"b{j}": {
+                "ln1": L.init_norm(cfg, d, (reps,), device),
+                "attn": L.init_attention(cfg, generator, (reps,), device),
+                "ln2": L.init_norm(cfg, d, (reps,), device),
+                "ffn": L.init_ffn(cfg, generator, (reps,), device)}
+             for j in range(len(pattern))}
+            for pattern, reps in cfg.stages()
+        ],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.normal_init((d, Vp), d ** -0.5,
+                                      cfg.param_torch_dtype, generator,
+                                      device)
+    return params
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # bf16 crosses as its bit pattern (numpy has no bfloat16 of its own)
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def from_jax(tree, device="cpu"):
+    """The port's parameters from a JAX parameter pytree whose leaves are
+    numpy arrays (``jax.tree.map(np.asarray, params)``): the same nested
+    structure and stacked per-stage layout, with tensor leaves."""
+    if isinstance(tree, dict):
+        return {k: from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_jax(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+# --------------------------------------------------------------------------
+# CheckpointManager .npz format (repro/training/checkpoint.py)
+# --------------------------------------------------------------------------
+def _unflatten(flat: dict):
+    root: dict = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def normalize(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node)
+        if keys and all(re.fullmatch(r"\d+", k) for k in keys):
+            return [normalize(node[str(i)]) for i in range(len(keys))]
+        return {k: normalize(v) for k, v in node.items()}
+
+    return normalize(root)
+
+
+def load_checkpoint(path, device="cpu"):
+    """Read one ``step_*.npz`` checkpoint with numpy alone: flattened key
+    paths, bf16 stored as a uint16 view and named in ``__dtypes__``.  bf16
+    becomes ``torch.bfloat16`` by reinterpreting the bits.  Returns the
+    saved tree (params, optimizer state, ...) with tensor leaves."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    dtypes = {}
+    if "__dtypes__" in flat:
+        dtypes = json.loads(flat.pop("__dtypes__").tobytes().decode())
+    out = {}
+    for key, arr in flat.items():
+        if dtypes.get(key) == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr.copy())
+        out[key] = t.to(device)
+    return _unflatten(out)

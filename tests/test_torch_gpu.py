@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips when no CUDA device is
+present (decided in the ``cuda`` fixture, never at import).  This file
+imports no JAX, so it also runs on a machine that has only PyTorch:
+``python -m pytest -m gpu tests/test_torch_gpu.py``.
+
+Tolerances are the kernel tolerances of ``tests/test_kernels.py``: 2e-5
+in f32 and 2e-2 in bf16 (one bf16 rounding of the output), top-k ids
+exact except at ranks whose plain scores tie within 1e-6.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.topk_sim import ops as topk_ops
+from repro_torch.kernels.topk_sim.ref import (block_max_scores_ref,
+                                              topk_sim_ref)
+
+pytestmark = pytest.mark.gpu
+
+TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(device=device, dtype=dtype)
+
+
+def _close(out, ref, dtype):
+    tol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def assert_topk_ids_match(ids, ref_ids, ref_scores, tie_tol=1e-6):
+    """ids equal ref_ids, except at ranks whose plain score ties a
+    neighbouring rank's within ``tie_tol`` (torch.topk's tie order is
+    unspecified)."""
+    ids, ref_ids = np.asarray(ids), np.asarray(ref_ids)
+    s = np.asarray(ref_scores, np.float64)
+    for qi, ri in zip(*np.nonzero(ids != ref_ids)):
+        near = [abs(s[qi, ri] - s[qi, j]) for j in (ri - 1, ri + 1)
+                if 0 <= j < s.shape[1]]
+        assert near and min(near) <= tie_tol, (
+            f"query {qi} rank {ri}: id {ids[qi, ri]} != {ref_ids[qi, ri]}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,KH,hd,causal,window",
+    [(2, 64, 4, 2, 32, True, 0),
+     (1, 96, 8, 8, 16, True, 0),
+     (2, 48, 4, 1, 16, True, 16),        # MQA + sliding window
+     (1, 80, 6, 2, 64, False, 0),        # bidirectional
+     (1, 33, 4, 2, 16, True, 0),         # ragged edge
+     (64, 128, 16, 16, 128, True, 0)])   # olmo-1b embed batch
+def test_flash_attention_kernel(cuda, B, S, H, KH, hd, causal, window,
+                                dtype):
+    rng = np.random.default_rng(0)
+    q = _t(rng, (B, S, H, hd), dtype, cuda)
+    k = _t(rng, (B, S, KH, hd), dtype, cuda)
+    v = _t(rng, (B, S, KH, hd), dtype, cuda)
+    before = flash_ops.flash_attention.launches
+    out = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    _close(out, attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,window",
+                         [(3, 100, 8, 4, 32, 0),
+                          (2, 64, 4, 4, 16, 16),
+                          (1, 257, 8, 2, 64, 0),
+                          (4, 2048, 16, 16, 128, 0),     # olmo-1b decode
+                          (4, 2048, 16, 16, 128, 512)])
+def test_decode_attention_kernel(cuda, B, S, H, KH, hd, window, dtype):
+    rng = np.random.default_rng(1)
+    q = _t(rng, (B, 1, H, hd), dtype, cuda)
+    kc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    vc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    pos = torch.from_numpy(rng.integers(0, S, B).astype(np.int32)).to(cuda)
+    before = decode_ops.decode_attention.launches
+    out = decode_ops.decode_attention(q, kc, vc, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + 1
+    _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("N,D,Q,k,bn", [(1000, 32, 5, 10, 64),
+                                        (513, 16, 3, 7, 128),
+                                        (64, 8, 1, 64, 16),
+                                        (5, 8, 2, 9, 64),
+                                        (1, 4, 2, 3, 64),
+                                        (1000, 30, 9, 10, 64),   # D % 4 != 0
+                                        (100_000, 2048, 8, 100, 64)])
+def test_topk_sim_kernel(cuda, N, D, Q, k, bn):
+    rng = np.random.default_rng(2)
+    c = _t(rng, (N, D), torch.float32, cuda)
+    q = _t(rng, (Q, D), torch.float32, cuda)
+    bm = topk_ops.block_max_scores(c, q, block_n=bn)
+    torch.testing.assert_close(bm, block_max_scores_ref(c, q, block_n=bn),
+                               atol=1e-5, rtol=1e-5)
+    before = topk_ops.block_max_scores.launches
+    s, i = topk_ops.topk_sim(c, q, k, block_n=bn)
+    torch.cuda.synchronize()
+    assert topk_ops.block_max_scores.launches == before + 1
+    s_ref, i_ref = topk_sim_ref(c, q, min(k, N))
+    assert s.shape == (Q, min(k, N))
+    torch.testing.assert_close(s, s_ref, atol=1e-5, rtol=1e-5)
+    assert_topk_ids_match(i.cpu(), i_ref.cpu(), s_ref.cpu())
+
+
+def test_kernels_reject_bad_input(cuda):
+    q = torch.zeros((1, 8, 2, 24), device=cuda)         # head dim 24
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q.half(), q.half(), q.half())
+    c = torch.zeros((16, 8), device=cuda)
+    with pytest.raises(ValueError):
+        topk_ops.block_max_scores(c, torch.zeros((2, 4), device=cuda))

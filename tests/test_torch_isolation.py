@@ -1,0 +1,97 @@
+"""The port stands alone: no JAX and no ``repro`` import anywhere in
+``src/repro_torch/`` or ``chip_smoke.py``, and its entry points run on the
+GPU by default, raising rather than falling back to the CPU."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _foreign_imports(path: Path):
+    """(line, what) for every import of jax or of the JAX package, and
+    every ``jax.`` attribute use."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append((node.lineno, f"import {name}"))
+        if (isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id in ("jax", "jnp")):
+            bad.append((node.lineno, f"{node.value.id}.{node.attr}"))
+    return bad
+
+
+def test_port_imports_no_jax_and_no_repro():
+    assert len(PORT_FILES) > 15
+    found = {str(p.relative_to(REPO)): _foreign_imports(p)
+             for p in PORT_FILES}
+    assert {k: v for k, v in found.items() if v} == {}
+
+
+def test_scan_catches_foreign_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.core import x\n"
+                 "from repro_torch import y\nimport repro_torch.models\n"
+                 "z = jax.jit\n")
+    assert [w for _, w in _foreign_imports(f)] == [
+        "import jax.numpy", "import repro.core", "jax.jit"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import LocalTorchProvider
+    from repro_torch.retrieval import VectorIndex
+    from repro_torch.serving.engine import ServingEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalTorchProvider()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(get_smoke_config("olmo-1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VectorIndex(np.ones((4, 8), np.float32))
+    # asked for the CPU, they run there
+    assert LocalTorchProvider(device="cpu").engine.device.type == "cpu"
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, where):
+    """Without a GPU, and in a directory holding only the script, the
+    smoke exits non-zero and prints no result line."""
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    proc = _run_smoke(cwd)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
