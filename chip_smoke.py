@@ -8,9 +8,11 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
   2. each kernel against its plain PyTorch version at the main path's
      shapes (olmo-1b: flash attention on a 64-text embed batch of 128
      tokens, decode attention over 4 slots x 2048 positions, the block-max
-     scan over 100,000 x 2048 f32 passages), with CUDA-event times of the
-     kernel, the plain version and, where one exists, one PyTorch library
-     call computing the same function; bounds from the card's peak rates;
+     scan over 100,000 x 2048 f32 passages; falcon-mamba-7b: the selective
+     scan of a 64-text embed batch of 128 tokens, di=8192, N=16), with
+     CUDA-event times of the kernel, the plain version and, where one
+     exists, one PyTorch library call computing the same function; bounds
+     from the card's peak rates;
   3. the main path at full olmo-1b width through the user's entry points
      (LocalTorchProvider.embed, VectorIndex.topk, LocalTorchProvider.complete,
      ServingEngine.submit/run_until_idle), with every kernel's launch count
@@ -19,7 +21,14 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      against the same through the plain versions;
   5. a traced window of the engine serving 4 requests at once: device
      time by kernel group and the device's idle share;
-  6. a ``{"kernels": [...]}`` line, then the card, then the result line.
+  6. olmo-1b freed, the falcon-mamba-7b path at full width through the
+     same entry points (one 64-passage embed request, a device-resident
+     index, top-k, 2 RAG completions, 5 raw requests on 4 slots), the
+     selective scan's launches read from this run alone; each raw request
+     against the same request served alone from a fresh state (a reused
+     slot must not carry its last occupant's state); one embed batch
+     through the kernel against the same through the plain scan;
+  7. a ``{"kernels": [...]}`` line, then the card, then the result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -27,6 +36,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -41,6 +51,10 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# exp2 results per clock per SM on the special-function units (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0); the clock is the card's maximum SM clock, read from nvidia-smi
+SFU_EXP_PER_CLOCK_PER_SM = 16
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 LOGITS_TOL = 6e-2                                    # bf16 model tolerance
 
@@ -54,6 +68,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
 
 
 def time_ms(fn, flush, iters=20, warmup=3):
@@ -225,6 +247,56 @@ def check_topk(dev, flush):
         topk_plain_ms=time_ms(lambda: topk_sim_ref(corpus, queries, k),
                               flush, iters=5),
         library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by)
+    log(**row)
+    return row
+
+
+SSM_SCAN_TOL = 5 * TOLS[torch.bfloat16]   # tests/test_kernels.py ssm case
+
+
+def check_ssm(dev, flush):
+    """The selective scan at falcon-mamba-7b's embed shape: 64 texts of
+    128 tokens, d_inner 8192, state 16, bf16, with the init's A_log, D
+    and dt_bias (dt = softplus(N(0, 1) - 2))."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    B, S, di, N, dt_ = 64, 128, 8192, 16, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn((B, S, di), generator=g, device=dev).to(dt_)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=g, device=dev) - 2.0).to(dt_)
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev).to(dt_)
+              for _ in range(2))
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device=dev)).expand(di, N).contiguous()
+    D = torch.ones(di, dtype=torch.float32, device=dev)
+    args = (x, dt, Bm, Cm, A_log, D)
+    out = ssm_scan(*args)
+    ref = ssm_scan_ref(*args)
+    err = max_err(out, ref)
+    ok = torch.allclose(out.float(), ref.float(), atol=SSM_SCAN_TOL,
+                        rtol=SSM_SCAN_TOL)
+    n = B * S * di * N
+    nbytes = (3 * B * S * di + 2 * B * S * N) * 2 + (di * N + di) * 4
+    flops = 6 * n + 3 * B * S * di   # per state: 2 products, 2 FMAs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = max_sm_clock_hz()
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32_flops": flops / PEAK_FLOPS[torch.float32] * 1e3,
+             "exps": n / (sms * SFU_EXP_PER_CLOCK_PER_SM * clock) * 1e3}
+    b_ms = max(parts.values())
+    row = dict(
+        name="ssm_scan", route="cuda",
+        source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:59",
+        shape=f"x, dt ({B}, {S}, {di}), Bm, Cm ({B}, {S}, {N}) bf16",
+        max_abs_err=err, atol=SSM_SCAN_TOL, rtol=SSM_SCAN_TOL, ok=ok,
+        ms=time_ms(lambda: ssm_scan(*args), flush),
+        plain_ms=time_ms(lambda: ssm_scan_ref(*args), flush, iters=5),
+        library_ms=None, library=None, bound_ms=b_ms,
+        bound_by="bytes" if parts["bytes"] == b_ms else "operations",
+        bound_parts_ms=parts, bytes=nbytes, f32_flops=flops, exps=n,
+        sms=sms, max_sm_clock_hz=clock)
     log(**row)
     return row
 
@@ -441,6 +513,143 @@ def profile_window(provider):
                      for us, n, key in sorted(rows, reverse=True)[:12]])
 
 
+# --------------------------------------------------------------------------
+# phase 6: the falcon-mamba-7b path at full width
+# --------------------------------------------------------------------------
+MAMBA = "falcon-mamba-7b"
+
+
+def mamba_path(dev):
+    """Serve falcon-mamba-7b through the same entry points; its embed
+    requests run the selective-scan kernel once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (LocalTorchProvider, ModelResource,
+                                  build_metaprompt)
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.params import init_params
+    from repro_torch.retrieval import VectorIndex
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(MAMBA)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    log(phase="mamba_weights", arch=cfg.name, params=cfg.num_params(),
+        layers=cfg.num_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
+        ssm_state=cfg.ssm_state, vocab=cfg.vocab_size,
+        weight_gb=sum(t.numel() * t.element_size()
+                      for t in _tensors(params)) / 1e9,
+        seconds=time.perf_counter() - t_phase,
+        init_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    provider = LocalTorchProvider(MAMBA, use_smoke_config=False, device=dev,
+                                  params=params)
+    engine = provider.engine
+    rng = np.random.default_rng(SEED + 4)
+    docs = passages(rng, 64, 90, 129)           # one request, bucket 128
+    questions = passages(rng, 4, 30, 60)
+    emb_model = ModelResource("mamba-embed", 1, MAMBA)
+    gen_model = ModelResource("mamba-gen", 1, MAMBA, max_output_tokens=8)
+
+    ssm_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    doc_vecs = provider.embed(emb_model, docs)
+    index = VectorIndex(doc_vecs, device=dev)
+    q_vecs = provider.embed(emb_model, questions)
+    embed_requests = 2
+    scores, ids = index.topk(q_vecs, k=5)
+    answers, new_tokens = [], []
+    for qi in range(2):
+        mp = build_metaprompt(
+            "complete", f"Answer using the passages: {questions[qi]}",
+            [{"passage": docs[j]} for j in ids[qi, :3]])
+        before = provider.stats.snapshot()["output_tokens"]
+        answers.append(provider.complete(gen_model, mp, 1))
+        new_tokens.append(provider.stats.snapshot()["output_tokens"]
+                          - before)
+    # 5 raw requests on 4 slots: the fifth takes a freed slot
+    prompts = [[int(t) for t in rng.integers(0, 256, n)]
+               for n in rng.integers(40, 120, 5)]
+    raw = [engine.submit(p, max_new_tokens=8) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssm_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    check(doc_vecs.shape == (64, cfg.d_model)
+          and np.isfinite(doc_vecs).all()
+          and np.allclose(np.linalg.norm(doc_vecs, axis=1), 1.0, atol=1e-3),
+          "falcon-mamba corpus embeddings are finite unit vectors")
+    check(ids.shape == (4, 5) and (0 <= ids).all() and (ids < 64).all()
+          and np.all(np.diff(scores, axis=1) <= 1e-6),
+          "falcon-mamba top-5 ids in range, scores descending")
+    check(new_tokens == [8, 8]
+          and all(len(a) == 1 and a[0].startswith("0: ") for a in answers),
+          f"falcon-mamba completions: {new_tokens}")
+    check(all(r.finished and len(r.generated) == 8 for r in raw),
+          "falcon-mamba raw requests generated 8 tokens each")
+    check(launches == cfg.num_layers * embed_requests,
+          f"ssm_scan launched {launches} times, not {cfg.num_layers} per "
+          f"embed request")
+    stats = provider.stats.snapshot()
+    log(phase="mamba_path", arch=cfg.name, embed_requests=embed_requests,
+        embed_texts=len(docs) + len(questions), completions=len(answers),
+        raw_requests=len(raw), slots=engine.n_slots,
+        raw_slots=[r.slot for r in raw],
+        prompt_tokens=stats["prompt_tokens"] + sum(map(len, prompts)),
+        generated_tokens=stats["output_tokens"]
+        + sum(len(r.generated) for r in raw),
+        engine_steps=engine.steps, wall_s=wall, peak_memory_gb=peak / 1e9,
+        launches={"ssm_scan": launches})
+
+    # each raw request against itself served alone from a fresh state
+    t1 = time.perf_counter()
+    alone = []
+    for p in prompts:
+        fresh = ServingEngine(cfg, n_slots=engine.n_slots,
+                              max_context=engine.max_context, device=dev,
+                              params=params)
+        alone.append(fresh.generate(p, max_new_tokens=8))
+        del fresh
+    same = [r.generated == a for r, a in zip(raw, alone)]
+    log(phase="mamba_reused_slots", same_as_alone=same,
+        fifth_request_slot=raw[4].slot, seconds=time.perf_counter() - t1)
+    check(all(same), f"a request in a reused slot differs from its run "
+          f"from a fresh state: {same}")
+
+    compare_embed_plain_scan(provider, docs)
+    log(phase="mamba_phase", wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def compare_embed_plain_scan(provider, docs):
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import layers as L
+    engine = provider.engine
+    tokens = [provider._tokenize(t, engine.cfg.vocab_size) for t in docs]
+    e_kern = engine.embed_batch(tokens)
+    with mock.patch.object(L.ssm_ops, "ssm_scan", ssm_scan_ref):
+        e_plain = engine.embed_batch(tokens)
+    cos = float(np.min(np.sum(e_kern * e_plain, axis=1)))
+    err = float(np.abs(e_kern - e_plain).max())
+    log(phase="mamba_embed_vs_plain", texts=len(tokens), min_cosine=cos,
+        max_abs_err=err)
+    check(cos > 0.999, f"falcon-mamba embeddings differ from the plain scan "
+          f"(cos {cos})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -463,19 +672,26 @@ def main() -> int:
     flash = check_flash(dev, flush)
     decode = check_decode(dev, flush)
     topk = check_topk(dev, flush)
+    ssm = check_ssm(dev, flush)
     del flush
     torch.cuda.empty_cache()
-    for row in (flash, *decode, topk):
+    for row in (flash, *decode, topk, ssm):
         check(row["ok"], f"{row['name']} disagrees with its plain version")
 
     provider, docs, launches = main_path(dev)
     compare_plain(provider, docs)
     profile_window(provider)
+    del provider, docs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase="olmo_freed",
+        allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    launches["ssm_scan"] = mamba_path(dev)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ok", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict({k: row[k] for k in keys}, launches=launches[row["name"]])
-               for row in (flash, decode[0], topk)]
+               for row in (flash, decode[0], topk, ssm)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,19 @@
 ``repro/models/config.py``).
 
 The same frozen dataclass and field names as the JAX package, for the
-fields the dense decoder reads and the features it still refuses.
+fields the dense decoder and the Mamba-1 block read and the features the
+port still refuses.
 Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
-``remat*``, cost-probe overrides, sharding padding) are dropped: the port
-picks its kernels by the device a tensor lives on, not by a flag.
+``remat*``, ``ssm_fuse``, cost-probe overrides, sharding padding) are
+dropped: the port picks its kernels by the device a tensor lives on, not
+by a flag.
 
 Layer-kind strings used in ``pattern``:
   "attn"   full (global) causal self-attention
   "local"  sliding-window causal self-attention (window = ``window_size``)
   "swa"    alias of "local"
   "rec"    RG-LRU recurrence block (not yet ported, see ROADMAP.md)
-  "mamba"  Mamba-1 selective-SSM block (not yet ported, see ROADMAP.md)
+  "mamba"  Mamba-1 selective-SSM block (no separate FFN; d_ff == 0)
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Tuple
 import torch
 
 ATTN_KINDS = ("attn", "local", "swa", "global")
+PORTED_KINDS = ATTN_KINDS + ("mamba",)
 
 
 @dataclass(frozen=True)
@@ -48,6 +51,12 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma-style sqrt(d) embedding multiplier
+    # ---- SSM (Mamba-1) ----
+    d_inner: int = 0
+    ssm_state: int = 0
+    conv_width: int = 4
+    dt_rank: int = 0
+    scan_chunk: int = 256            # chunk of the stateful linear scan
     # ---- features not yet ported (check_supported refuses them) ----
     num_experts: int = 0
     is_encoder_decoder: bool = False
@@ -93,7 +102,8 @@ class ModelConfig:
         return tuple(out)
 
     def num_params(self) -> int:
-        """Analytic parameter count of a dense stack."""
+        """Analytic parameter count (the JAX package's formula for the
+        layer kinds the port runs; norm scales are not counted)."""
         d, hd = self.d_model, self.resolved_head_dim
         n = self.vocab_size * d
         if not self.tie_embeddings:
@@ -103,7 +113,16 @@ class ModelConfig:
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
         ffn = (3 if self.glu else 2) * d * self.d_ff
-        return n + self.num_layers * (attn + ffn)
+        per_kind = {k: attn + ffn for k in ATTN_KINDS}
+        if self.d_inner:
+            di, s = self.d_inner, self.ssm_state
+            per_kind["mamba"] = (d * 2 * di + self.conv_width * di
+                                 + di * (self.dt_rank + 2 * s)
+                                 + self.dt_rank * di + di * s + di + di * d)
+        for pattern, reps in self.stages():
+            for kind in pattern:
+                n += per_kind[kind] * reps
+        return n
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -121,7 +140,7 @@ def check_supported(cfg: ModelConfig):
     if cfg.kv_quant != "none":
         missing.append(f"kv_quant={cfg.kv_quant!r}")
     for kind in cfg.pattern:
-        if kind not in ATTN_KINDS:
+        if kind not in PORTED_KINDS:
             missing.append(f"layer kind {kind!r}")
     if missing:
         raise NotImplementedError(

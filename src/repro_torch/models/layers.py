@@ -1,17 +1,22 @@
-"""Layer primitives of the dense decoder (port of ``repro/models/layers.py``).
+"""Layer primitives of the dense decoder and the Mamba-1 block (port of
+``repro/models/layers.py``).
 
 Plain functions on tensors with the JAX package's parameter layout
-(``wq`` is (d, H, hd), ``wo`` is (H, hd, d), ...), so weights carried over
-by ``repro_torch.params.from_jax`` run unchanged.  Full-sequence attention
-goes through ``kernels.flash_attention`` and decode attention through
-``kernels.decode_attention``: the CUDA kernels for tensors on the GPU,
-their plain versions for tensors on the CPU.  The chunked attention of
-chunked prefill has no kernel in the JAX package either and stays plain
-PyTorch here.
+(``wq`` is (d, H, hd), ``wo`` is (H, hd, d), ``in_proj`` is (d, 2 di),
+...), so weights carried over by ``repro_torch.params.from_jax`` run
+unchanged.  Full-sequence attention goes through
+``kernels.flash_attention``, decode attention through
+``kernels.decode_attention`` and the full-sequence selective scan of a
+Mamba layer through ``kernels.ssm_scan``: the CUDA kernels for tensors on
+the GPU, their plain versions for tensors on the CPU.  The chunked
+attention of chunked prefill and the stateful linear scan of Mamba
+prefill and decode have no kernel in the JAX package either and stay
+plain PyTorch here.
 
 bf16 rounds where the JAX package rounds: norms and rope in f32 and cast
-back, projections as bf16 products.  MoE, Mamba, RG-LRU, cross-attention
-and the int8 KV cache are not ported yet (``config.check_supported``).
+back, projections as bf16 products, the scan in f32.  MoE, RG-LRU,
+cross-attention and the int8 KV cache are not ported yet
+(``config.check_supported``).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 from .config import ModelConfig
 
@@ -172,7 +178,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
 # --------------------------------------------------------------------------
 def normal_init(shape, std, dtype, generator, device):
     x = torch.randn(shape, generator=generator, dtype=F32, device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_attention(cfg: ModelConfig, generator, lead=(), device=None):
@@ -309,3 +315,142 @@ def ffn_apply(cfg: ModelConfig, p, x):
     if cfg.glu:
         h = h * (x @ p["w3"])
     return h @ p["w2"]
+
+
+# --------------------------------------------------------------------------
+# linear recurrence scan  h_t = a_t * h_{t-1} + b_t   (chunked)
+# --------------------------------------------------------------------------
+def _doubling_scan(a, b):
+    """Inclusive scan of the affine maps (a_t, b_t) along axis 1 in
+    log2(L) doubling steps.  Returns (A, Bv) with h_t = Bv_t + A_t * h_in
+    for a state h_in entering the chunk."""
+    L = a.shape[1]
+    k = 1
+    while k < L:
+        b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return a, b
+
+
+def linear_scan(a, b, h0=None, *, chunk: int = 256):
+    """Scan along axis 1.  a, b: (B, S, ...); h0: (B, ...) or None (zero).
+    Returns (h_all (B, S, ...), h_last (B, ...)).  Chunks of ``chunk``
+    steps run one after another, each as a doubling scan (the JAX
+    package runs an associative scan inside each chunk)."""
+    S = a.shape[1]
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    outs = []
+    for start in range(0, S, chunk):
+        A, Bv = _doubling_scan(a[:, start:start + chunk],
+                               b[:, start:start + chunk])
+        hc = Bv + A * h[:, None]
+        h = hc[:, -1]
+        outs.append(hc)
+    return torch.cat(outs, dim=1), h
+
+
+# --------------------------------------------------------------------------
+# causal depthwise conv (width 4)
+# --------------------------------------------------------------------------
+def causal_conv(x, w, b, state=None):
+    """x: (B, S, C); w: (cw, C); state: (B, cw-1, C) prior context or None.
+
+    Returns (y, new_state) where new_state is the trailing cw-1 inputs."""
+    cw = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, cw):
+        y = y + xp[:, i:i + S] * w[i]
+    y = y + b
+    new_state = xp[:, -(cw - 1):] if cw > 1 else state
+    return y, new_state
+
+
+# --------------------------------------------------------------------------
+# Mamba-1 selective SSM block
+# --------------------------------------------------------------------------
+def init_mamba(cfg: ModelConfig, generator, lead=(), device=None):
+    """Mamba weights (stacked over ``lead``) at the JAX init's shapes and
+    dtypes: projections and the conv in ``param_dtype``, ``dt_bias``,
+    ``A_log`` and ``D`` in f32 with the JAX init's constant values."""
+    d, di, s, r, cw = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                       cfg.conv_width)
+    dt = cfg.param_torch_dtype
+    a_log = torch.log(torch.arange(1, s + 1, dtype=F32, device=device))
+    return {
+        "in_proj": normal_init((*lead, d, 2 * di), d ** -0.5, dt, generator,
+                               device),
+        "conv_w": normal_init((*lead, cw, di), cw ** -0.5, dt, generator,
+                              device),
+        "conv_b": torch.zeros((*lead, di), dtype=dt, device=device),
+        "x_proj": normal_init((*lead, di, r + 2 * s), di ** -0.5, dt,
+                              generator, device),
+        "dt_proj": normal_init((*lead, r, di), r ** -0.5, dt, generator,
+                               device),
+        "dt_bias": torch.full((*lead, di), -2.0, dtype=F32, device=device),
+        "A_log": a_log.expand(*lead, di, s).contiguous(),
+        "D": torch.ones((*lead, di), dtype=F32, device=device),
+        "out_proj": normal_init((*lead, di, d), di ** -0.5, dt, generator,
+                                device),
+    }
+
+
+def _mamba_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False):
+    """x_c: (B, S, di) post-conv activations -> (y, h_last).
+
+    Without a state in or out (the full-sequence forward) the scan is
+    ``ssm_ops.ssm_scan`` with dt cast to x_c's dtype, as the JAX package's
+    kernel path casts it; otherwise it is the stateful plain scan."""
+    r, s = cfg.dt_rank, cfg.ssm_state
+    proj = x_c @ p["x_proj"]
+    dt_raw, Bm, Cm = proj.split([r, s, s], dim=-1)
+    dt = F.softplus((dt_raw @ p["dt_proj"]).to(F32) + p["dt_bias"])
+    if h0 is None and not return_state:
+        y = ssm_ops.ssm_scan(x_c, dt.to(x_c.dtype), Bm.contiguous(),
+                             Cm.contiguous(), p["A_log"], p["D"])
+        return y, None
+    A = -torch.exp(p["A_log"])                                  # (di, s)
+    a = torch.exp(dt[..., None] * A)                            # (B,S,di,s)
+    bu = (dt * x_c.to(F32))[..., None] * Bm.to(F32)[:, :, None, :]
+    h_all, h_last = linear_scan(a, bu, h0, chunk=cfg.scan_chunk)
+    y = (h_all * Cm.to(F32)[:, :, None, :]).sum(dim=-1)          # (B,S,di)
+    y = y + p["D"] * x_c.to(F32)
+    return y.to(x_c.dtype), (h_last if return_state else None)
+
+
+def mamba_apply_train(cfg: ModelConfig, p, x):
+    xz = x @ p["in_proj"]
+    x_in, z = xz.chunk(2, dim=-1)
+    x_c, _ = causal_conv(x_in, p["conv_w"], p["conv_b"])
+    x_c = F.silu(x_c)
+    y, _ = _mamba_core(cfg, p, x_c)
+    y = y * F.silu(z)
+    return y @ p["out_proj"]
+
+
+def mamba_apply_decode(cfg: ModelConfig, p, x, cache):
+    """x: (B, C, d), any C; cache: {"conv": (B, cw-1, di), "ssm": (B, di,
+    s)}.  Returns (y, cache): the cache given, its state written in place
+    (the engine hands in views of its slot rows)."""
+    xz = x @ p["in_proj"]
+    x_in, z = xz.chunk(2, dim=-1)
+    x_c, conv_state = causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                  state=cache["conv"])
+    x_c = F.silu(x_c)
+    y, h_last = _mamba_core(cfg, p, x_c, h0=cache["ssm"], return_state=True)
+    y = y * F.silu(z)
+    cache["conv"].copy_(conv_state)
+    cache["ssm"].copy_(h_last)
+    return y @ p["out_proj"], cache
+
+
+def init_mamba_cache(cfg: ModelConfig, B: int, dtype, lead=(), device=None):
+    return {"conv": torch.zeros((*lead, B, cfg.conv_width - 1, cfg.d_inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((*lead, B, cfg.d_inner, cfg.ssm_state),
+                               dtype=F32, device=device)}

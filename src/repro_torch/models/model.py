@@ -1,12 +1,15 @@
-"""Stack assembly for the dense decoder: train forward, prefill, chunked
-prefill and decode (port of ``repro/models/model.py``).
+"""Stack assembly for the dense decoder and the Mamba-1 stack: train
+forward, prefill, chunked prefill and decode (port of
+``repro/models/model.py``).
 
 Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
 "stages": [{"b0": {...}, ...}, ...]}`` with each stage's weights stacked
 along a leading ``repeats`` axis (see ``ModelConfig.stages``).  Where the
 JAX package scans over that axis, the port loops over it.  Caches keep
-the same stage structure, (repeats, B, S, KH, hd) per stage, and decode
-and chunked prefill write them in place and return them.
+the same stage structure: (repeats, B, S, KH, hd) keys and values of an
+attention layer, (repeats, B, cw-1, di) conv and (repeats, B, di, N) ssm
+state of a Mamba layer.  Decode and chunked prefill write them in place
+and return them.
 
 Batch dict convention: ``tokens`` (B, S) int token ids (-1 pads).
 Parameters are drawn by ``repro_torch.params.init_params``.
@@ -42,6 +45,8 @@ def _stack(trees):
 def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                 pos=None, cache=None, causal=True, cache_len=0):
     """Returns (x, new_cache)."""
+    if kind == "mamba":
+        return _apply_mamba(cfg, p, x, mode=mode, cache=cache)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not yet ported "
                                   "to PyTorch (see ROADMAP.md, queue A)")
@@ -65,6 +70,20 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
     if mode in ("prefill", "decode", "extend"):
         new_cache["attn"] = new_attn
     return x, new_cache
+
+
+def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache):
+    """A Mamba layer: norm, the block, a residual, no FFN.  Its decode
+    path takes any number of tokens (the conv and the scan carry a
+    state), so prefill is decode from a zero state and extend is decode."""
+    h = L.norm_apply(cfg, p.get("ln1", {}), x)
+    if mode == "train":
+        return x + L.mamba_apply_train(cfg, p["mamba"], h), {}
+    c = (cache["mamba"] if mode in ("decode", "extend")
+         else L.init_mamba_cache(cfg, x.shape[0], cfg.compute_torch_dtype,
+                                 device=x.device))
+    y, c = L.mamba_apply_decode(cfg, p["mamba"], h, c)
+    return x + y, {"mamba": c}
 
 
 # --------------------------------------------------------------------------
@@ -147,15 +166,26 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
     check_supported(cfg)
     dt = cfg.compute_torch_dtype
     hd, KH = cfg.resolved_head_dim, cfg.num_kv_heads
-    return [
-        {f"b{j}": {"attn": {
-            "k": torch.zeros((repeats, B, cache_len, KH, hd), dtype=dt,
-                             device=device),
-            "v": torch.zeros((repeats, B, cache_len, KH, hd), dtype=dt,
-                             device=device)}}
-         for j in range(len(pattern))}
-        for pattern, repeats in cfg.stages()
-    ]
+
+    def layer_cache(kind, repeats):
+        if kind == "mamba":
+            return {"mamba": L.init_mamba_cache(cfg, B, dt, (repeats,),
+                                                device)}
+        shape = (repeats, B, cache_len, KH, hd)
+        return {"attn": {"k": torch.zeros(shape, dtype=dt, device=device),
+                         "v": torch.zeros(shape, dtype=dt, device=device)}}
+    return [{f"b{j}": layer_cache(kind, repeats)
+             for j, kind in enumerate(pattern)}
+            for pattern, repeats in cfg.stages()]
+
+
+def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
+    """Zero one batch row of every recurrent cache leaf (a Mamba stage's
+    conv and ssm state); attention caches are masked by position and stay."""
+    for stage in cache:
+        for block in stage.values():
+            for t in block.get("mamba", {}).values():
+                t[:, row].zero_()
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):

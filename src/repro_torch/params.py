@@ -21,10 +21,25 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
 
 
+def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device):
+    """One layer's weights, stacked over ``reps`` repeats (the JAX
+    package's ``_init_layer`` keys)."""
+    d = cfg.d_model
+    p = {"ln1": L.init_norm(cfg, d, (reps,), device)}
+    if kind == "mamba":
+        p["mamba"] = L.init_mamba(cfg, generator, (reps,), device)
+        return p
+    p["attn"] = L.init_attention(cfg, generator, (reps,), device)
+    p["ln2"] = L.init_norm(cfg, d, (reps,), device)
+    p["ffn"] = L.init_ffn(cfg, generator, (reps,), device)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Weights at the JAX init's shapes and scales (N(0, 1) times
-    fan-in^-0.5, cast to ``param_dtype``), drawn from ``generator``, which
-    must live on ``device``."""
+    fan-in^-0.5, cast to ``param_dtype``; the JAX init's constants where
+    it has them), drawn from ``generator``, which must live on
+    ``device``."""
     check_supported(cfg)
     Vp, d = cfg.padded_vocab, cfg.d_model
     params = {
@@ -32,12 +47,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
                            generator, device),
         "final_norm": L.init_norm(cfg, d, device=device),
         "stages": [
-            {f"b{j}": {
-                "ln1": L.init_norm(cfg, d, (reps,), device),
-                "attn": L.init_attention(cfg, generator, (reps,), device),
-                "ln2": L.init_norm(cfg, d, (reps,), device),
-                "ffn": L.init_ffn(cfg, generator, (reps,), device)}
-             for j in range(len(pattern))}
+            {f"b{j}": _init_layer(cfg, kind, generator, reps, device)
+             for j, kind in enumerate(pattern)}
             for pattern, reps in cfg.stages()
         ],
     }

@@ -15,6 +15,13 @@ Unlike the JAX engine, which runs a prefill chunk over every slot and then
 keeps only the working slot's rows of the returned cache, a chunk here runs
 on the working slot's row alone and writes its cache rows in place; the
 other slots' rows are never touched.
+
+A slot's recurrent state (the ``conv`` and ``ssm`` leaves of a Mamba
+layer's cache) is zeroed when a request is admitted to it: the previous
+occupant's state, and whatever idle decode steps added to it, would
+otherwise carry into the new request.  A KV cache needs no reset: its
+stale rows lie past the new request's positions and are masked.  (The
+JAX engine does not reset it; ROADMAP.md, queue C.)
 """
 
 from __future__ import annotations
@@ -108,6 +115,7 @@ class ServingEngine:
                     continue
                 req.slot = slot
                 req.pos = 0
+                M.reset_recurrent_rows(self.cfg, self.cache, slot)
                 self.active[slot] = req
 
     def _slot_cache(self, slot: int):

@@ -6,8 +6,9 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 
 Tolerances are the kernel tolerances of ``tests/test_kernels.py``: 2e-5
-in f32 and 2e-2 in bf16 (one bf16 rounding of the output), top-k ids
-exact except at ranks whose plain scores tie within 1e-6.
+in f32 and 2e-2 in bf16 (one bf16 rounding of the output), five times
+those for the selective scan (its test there), top-k ids exact except at
+ranks whose plain scores tie within 1e-6.
 """
 
 import numpy as np
@@ -19,6 +20,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.topk_sim import ops as topk_ops
 from repro_torch.kernels.topk_sim.ref import (block_max_scores_ref,
                                               topk_sim_ref)
@@ -135,3 +138,55 @@ def test_kernels_reject_bad_input(cuda):
     c = torch.zeros((16, 8), device=cuda)
     with pytest.raises(ValueError):
         topk_ops.block_max_scores(c, torch.zeros((2, 4), device=cuda))
+
+
+def _ssm_inputs(rng, B, S, di, N, dtype, device):
+    """``tests/test_kernels.py``'s selective-scan inputs."""
+    x = _t(rng, (B, S, di), dtype, device)
+    dt = torch.from_numpy(np.abs(rng.standard_normal((B, S, di))).astype(
+        np.float32) * 0.1).to(device=device, dtype=dtype)
+    Bm = _t(rng, (B, S, N), dtype, device)
+    Cm = _t(rng, (B, S, N), dtype, device)
+    A_log = torch.from_numpy(np.log(np.abs(rng.standard_normal((di, N)))
+                                    + 0.5).astype(np.float32)).to(device)
+    D = _t(rng, (di,), torch.float32, device)
+    return x, dt, Bm, Cm, A_log, D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,N",
+                         [(2, 80, 48, 8),
+                          (1, 128, 64, 16),
+                          (2, 33, 24, 4),
+                          (3, 37, 200, 16),       # ragged di and S
+                          (2, 21, 130, 5),        # state of 5
+                          (4, 256, 8192, 16)])    # falcon-mamba-7b width
+def test_ssm_scan_kernel(cuda, B, S, di, N, dtype):
+    args = _ssm_inputs(np.random.default_rng(3), B, S, di, N, dtype, cuda)
+    before = ssm_ops.ssm_scan.launches
+    out = ssm_ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_ops.ssm_scan.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, di)
+    ref = ssm_scan_ref(*args)
+    tol = 5 * TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_ssm_scan_rejects_bad_input(cuda):
+    x, dt, Bm, Cm, A_log, D = _ssm_inputs(np.random.default_rng(4), 2, 16,
+                                          64, 16, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):                  # dt not in x's dtype
+        ssm_ops.ssm_scan(x, dt.float(), Bm, Cm, A_log, D)
+    with pytest.raises(TypeError):                  # A_log not f32
+        ssm_ops.ssm_scan(x, dt, Bm, Cm, A_log.bfloat16(), D)
+    wide = torch.zeros((2, 16, 32), dtype=x.dtype, device=cuda)
+    with pytest.raises(ValueError):                 # state above 16
+        ssm_ops.ssm_scan(x, dt, wide, wide,
+                         torch.zeros((64, 32), device=cuda), D)
+    with pytest.raises(ValueError):                 # A_log of another width
+        ssm_ops.ssm_scan(x, dt, Bm, Cm, A_log[:32], D)
+    with pytest.raises(ValueError):                 # not contiguous
+        ssm_ops.ssm_scan(x.transpose(0, 1), dt, Bm, Cm, A_log, D)
+    with pytest.raises(ValueError):                 # a CPU tensor among them
+        ssm_ops.ssm_scan(x, dt, Bm, Cm, A_log, D.cpu())
