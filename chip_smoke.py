@@ -9,10 +9,13 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      shapes (olmo-1b: flash attention on a 64-text embed batch of 128
      tokens, decode attention over 4 slots x 2048 positions, the block-max
      scan over 100,000 x 2048 f32 passages; falcon-mamba-7b: the selective
-     scan of a 64-text embed batch of 128 tokens, di=8192, N=16), with
-     CUDA-event times of the kernel, the plain version and, where one
-     exists, one PyTorch library call computing the same function; bounds
-     from the card's peak rates;
+     scan of a 64-text embed batch of 128 tokens, di=8192, N=16;
+     recurrentgemma-9b: flash attention of 16 query heads over one KV head
+     of 256 on its embed batch, decode attention at that width over 4
+     slots x 4096 positions with its window of 2048, the RG-LRU recurrence
+     of its embed batch, di=4096, f32), with CUDA-event times of the
+     kernel, the plain version and, where one exists, one PyTorch library
+     call computing the same function; bounds from the card's peak rates;
   3. the main path at full olmo-1b width through the user's entry points
      (LocalTorchProvider.embed, VectorIndex.topk, LocalTorchProvider.complete,
      ServingEngine.submit/run_until_idle), with every kernel's launch count
@@ -28,7 +31,19 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      against the same request served alone from a fresh state (a reused
      slot must not carry its last occupant's state); one embed batch
      through the kernel against the same through the plain scan;
-  7. a ``{"kernels": [...]}`` line, then the card, then the result line.
+  7. falcon-mamba-7b freed, the recurrentgemma-9b path the same way: its
+     embed requests launch rg_lru once per "rec" layer (26) and flash
+     attention once per "local" layer (12), each decode step decode
+     attention once per "local" layer (12), counted in this phase alone;
+     each raw request against a fresh engine (the "rec" state of a
+     reused slot is zeroed); an embed batch through the kernels against
+     the plain versions; a decode step whose decode-attention calls are
+     each held against the plain version on the same inputs in bf16, and
+     whose logits are held against the plain path in f32 (in bf16 one
+     rounding of one attention output already moves them past the
+     tolerance at this depth; the script measures that floor);
+  8. a ``{"kernels": [...]}`` line (each kernel's launches summed over
+     the paths, and by path), then the card, then the result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -127,50 +142,74 @@ def ids_match(ids, ref_ids, ref_scores, tie_tol=1e-6) -> bool:
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions at main-path shapes
 # --------------------------------------------------------------------------
-def check_flash(dev, flush):
+def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
+    """Flash attention on a 64-text embed batch of 128 tokens, 16 query
+    heads: olmo-1b's (16 KV heads of 128) by default, recurrentgemma-9b's
+    with ``KH=1, hd=256, window=2048``."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, L, H, hd, dt = 64, 128, 16, 128, torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    q, k, v = (torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
-               for _ in range(3))
-    out = flash_attention(q, k, v, causal=True)
-    ref = attention_ref(q, k, v, causal=True)
+    B, L, H, dt = 64, 128, 16, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((B, L, KH, hd), generator=g, device=dev).to(dt)
+            for _ in range(2))
+
+    def kern():
+        return flash_attention(q, k, v, causal=True, window=window)
+
+    def plain():
+        return attention_ref(q, k, v, causal=True, window=window)
+    out, ref = kern(), plain()
     err = max_err(out, ref)
     ok = torch.allclose(out.float(), ref.float(), atol=TOLS[dt],
                         rtol=TOLS[dt])
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
-    nbytes = 4 * q.numel() * q.element_size()
+    # a window of at least L masks nothing beyond the causal mask
+    check(window == 0 or window >= L, "SDPA yardstick needs window >= L")
+    if KH == H:
+        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+    else:
+        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                   enable_gqa=True), flush)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
     flops = 4 * B * H * (L * (L + 1) // 2) * hd
     b_ms, b_by = bound_ms(nbytes, flops, dt)
+    shape = (f"q,k,v ({B}, {L}, {H}, {hd}) bf16 causal" if KH == H else
+             f"q ({B}, {L}, {H}, {hd}), k,v ({B}, {L}, {KH}, {hd}) bf16 "
+             f"causal, window {window}")
     row = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:80",
-        shape=f"q,k,v ({B}, {L}, {H}, {hd}) bf16 causal",
+        shape=shape,
         max_abs_err=err, atol=TOLS[dt], rtol=TOLS[dt], ok=ok,
-        ms=time_ms(lambda: flash_attention(q, k, v, causal=True), flush),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=True), flush,
-                         iters=5),
-        library_ms=lib, library="F.scaled_dot_product_attention",
+        ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush, iters=5),
+        library_ms=lib,
+        library="F.scaled_dot_product_attention"
+        + ("" if KH == H else "(enable_gqa)"),
         bound_ms=b_ms, bound_by=b_by)
     log(**row)
     return row
 
 
-def check_decode(dev, flush):
+def check_decode(dev, flush, S=2048, KH=16, hd=128,
+                 positions=(1900, 1024, 300, 37), windows=(0, 512),
+                 seed=SEED + 1):
+    """Decode attention over 4 slots, 16 query heads: olmo-1b's (16 KV
+    heads of 128, a 2048-slot cache) by default, recurrentgemma-9b's with
+    ``KH=1, hd=256`` and positions past its window of 2048."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    B, S, H, KH, hd, dt = 4, 2048, 16, 16, 128, torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    B, H, dt = 4, 16, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dt)
     kc, vc = (torch.randn((B, S, KH, hd), generator=g, device=dev).to(dt)
               for _ in range(2))
-    pos = torch.tensor([1900, 1024, 300, 37], dtype=torch.int32, device=dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    gqa = {} if KH == H else {"enable_gqa": True}
     rows = []
-    for window in (0, 512):
+    for window in windows:
         def kern():
             return decode_attention(q, kc, vc, pos, window=window)
 
@@ -188,7 +227,8 @@ def check_decode(dev, flush):
         kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
         mask = valid[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), flush)
+        lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa),
+                      flush)
         n_valid = int(valid.sum())              # what this data must read
         nbytes = (2 * n_valid * KH * hd + 2 * q.numel()) * q.element_size() \
             + pos.numel() * 4
@@ -202,7 +242,9 @@ def check_decode(dev, flush):
                   f"bf16, pos {pos.tolist()}, window {window}",
             max_abs_err=err, atol=TOLS[dt], rtol=TOLS[dt], ok=ok,
             ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush, iters=5),
-            library_ms=lib, library="F.scaled_dot_product_attention(mask)",
+            library_ms=lib,
+            library="F.scaled_dot_product_attention(mask"
+            + (", enable_gqa)" if gqa else ")"),
             bound_ms=b_ms, bound_by=b_by,
             full_cache_bound_ms=(2 * kc.numel() * 2) / HBM_BYTES_PER_S * 1e3)
         log(**row)
@@ -297,6 +339,46 @@ def check_ssm(dev, flush):
         bound_by="bytes" if parts["bytes"] == b_ms else "operations",
         bound_parts_ms=parts, bytes=nbytes, f32_flops=flops, exps=n,
         sms=sms, max_sm_clock_hz=clock)
+    log(**row)
+    return row
+
+
+RG_LRU_TOL = {dt: 5 * t for dt, t in TOLS.items()}  # tests/test_kernels.py
+
+
+def check_rg_lru(dev, flush):
+    """The RG-LRU recurrence at recurrentgemma-9b's embed shape: 64 texts
+    of 128 tokens, d_inner 4096, f32 gates as the model computes them
+    (a = exp(-8 r softplus(2)), b = sqrt(1 - a^2) i x with r, i sigmoid
+    gates and x ~ N(0, 1))."""
+    from repro_torch.kernels.rg_lru.ops import rg_lru
+    from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+    B, S, di, dt = 64, 128, 4096, torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def draw():
+        return torch.randn((B, S, di), generator=g, device=dev)
+    log_a = -8.0 * torch.sigmoid(draw()) * torch.nn.functional.softplus(
+        torch.tensor(2.0, device=dev))
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1 - torch.exp(2 * log_a), 1e-6)) \
+        * torch.sigmoid(draw()) * draw()
+    del log_a
+    out = rg_lru(a, b)
+    ref = rg_lru_ref(a, b)
+    err = max_err(out, ref)
+    tol = RG_LRU_TOL[dt]
+    ok = torch.allclose(out, ref, atol=tol, rtol=tol)
+    nbytes = 3 * a.numel() * a.element_size()     # read a, b; write h
+    b_ms, b_by = bound_ms(nbytes, 2 * a.numel(), dt)
+    row = dict(
+        name="rg_lru", route="cuda", source="src/repro_torch/csrc/rg_lru.cu",
+        replaces="src/repro/kernels/rg_lru/kernel.py:43",
+        shape=f"a, b ({B}, {S}, {di}) f32",
+        max_abs_err=err, atol=tol, rtol=tol, ok=ok,
+        ms=time_ms(lambda: rg_lru(a, b), flush),
+        plain_ms=time_ms(lambda: rg_lru_ref(a, b), flush, iters=5),
+        library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by)
     log(**row)
     return row
 
@@ -414,21 +496,30 @@ def main_path(dev):
 # --------------------------------------------------------------------------
 # phase 4: the path through the kernels against the plain versions
 # --------------------------------------------------------------------------
-def compare_plain(provider, docs):
+def _map(fn, tree):
+    """``fn`` applied to every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def compare_decode_plain(engine):
+    """One full-width decode step from the engine's cache (cloned: the step
+    writes in place) through the decode kernel and through its plain
+    version."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    engine = provider.engine
     dev = engine.device
     toks = torch.tensor([[101], [7], [230], [64]], dtype=torch.int32,
                         device=dev)
     pos = torch.tensor([1500, 700, 123, 9], dtype=torch.int32, device=dev)
 
     def step():
-        cache = [{k: {"attn": {n: t.clone() for n, t in v["attn"].items()}}
-                  for k, v in stage.items()} for stage in engine.cache]
-        return M.decode_step(engine.cfg, engine.params, toks, cache, pos)[0]
+        return M.decode_step(engine.cfg, engine.params, toks,
+                             _map(torch.clone, engine.cache), pos)[0]
     kern = step()
     with mock.patch.object(L.decode_ops, "decode_attention",
                            decode_attention_ref):
@@ -441,15 +532,98 @@ def compare_plain(provider, docs):
     check(torch.isfinite(kern).all().item(), "decode logits finite")
     check(ok, f"decode_step logits differ from the plain path by {err}")
 
+
+def compare_decode_rounding(engine, prefix):
+    """recurrentgemma-9b's decode step against the plain path.  Over its
+    38 random-weight layers one bf16 ulp in one attention output moves the
+    bf16 logits by more than LOGITS_TOL (logged as the one-ulp noise floor),
+    so at bf16 the step holds each of its decode-attention calls against
+    the plain version on the same inputs (TOLS), and the logits are held
+    at LOGITS_TOL in the same step in f32 (weights and cache cast to f32,
+    the kernel's f32 instance), where rounding stays far below it."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    dev, bf16 = engine.device, torch.bfloat16
+    toks = torch.tensor([[101], [7], [230], [64]], dtype=torch.int32,
+                        device=dev)
+    pos = torch.tensor([1500, 700, 123, 9], dtype=torch.int32, device=dev)
+    kernel = L.decode_ops.decode_attention
+
+    def step(fn, cfg, params, cache):
+        with mock.patch.object(L.decode_ops, "decode_attention", fn):
+            return M.decode_step(cfg, params, toks,
+                                 _map(torch.clone, cache), pos)[0]
+
+    calls = []
+
+    def held(q, k, v, p, window=0, scale=None):
+        out = kernel(q, k, v, p, window=window, scale=scale)
+        ref = decode_attention_ref(q, k, v, p, window=window, scale=scale)
+        calls.append((max_err(out, ref), torch.allclose(
+            out.float(), ref.float(), atol=TOLS[bf16], rtol=TOLS[bf16])))
+        return out
+    held.launches = 0        # the wrapper counts under its module-level name
+
+    def one_ulp(q, k, v, p, window=0, scale=None):
+        ref = decode_attention_ref(q, k, v, p, window=window, scale=scale)
+        if not one_ulp.done:         # first call, first element, one ulp
+            ref.view(-1).view(torch.int16)[0] += 1
+            one_ulp.done = True
+        return ref
+    one_ulp.done = False
+
+    args = (engine.cfg, engine.params, engine.cache)
+    kern, plain = step(held, *args), step(decode_attention_ref, *args)
+    floor = max_err(step(one_ulp, *args), plain)
+    f32 = engine.cfg.replace(param_dtype="float32", compute_dtype="float32")
+    args32 = (f32, _map(torch.Tensor.float, engine.params),
+              _map(torch.Tensor.float, engine.cache))
+    kern32 = step(kernel, *args32)
+    plain32 = step(decode_attention_ref, *args32)
+    del args32
+    torch.cuda.empty_cache()
+    err32 = max_err(kern32, plain32)
+    ok32 = torch.allclose(kern32, plain32, atol=LOGITS_TOL, rtol=LOGITS_TOL)
+    log(phase=f"{prefix}decode_step_vs_plain", logits=list(kern.shape),
+        pos=pos.tolist(), bf16_calls=len(calls),
+        bf16_call_max_abs_err=[e for e, _ in calls],
+        bf16_calls_ok=all(ok for _, ok in calls),
+        call_atol=TOLS[bf16], call_rtol=TOLS[bf16],
+        bf16_logits_max_abs_err=max_err(kern, plain),
+        bf16_noise_floor_one_ulp=floor,
+        f32_logits_max_abs_err=err32, atol=LOGITS_TOL, rtol=LOGITS_TOL,
+        ok=ok32)
+    check(torch.isfinite(kern).all().item() and
+          torch.isfinite(kern32).all().item(), f"{prefix}decode logits finite")
+    check(len(calls) > 0 and all(ok for _, ok in calls),
+          f"{prefix}a decode_attention call of the bf16 step differs from "
+          f"its plain version: {calls}")
+    check(ok32, f"{prefix}f32 decode_step logits differ from the plain path "
+          f"by {err32}")
+
+
+def compare_embed_plain(provider, docs, prefix=""):
+    """One 64-text embed batch through the kernels and through every
+    full-sequence kernel's plain version (flash attention, the selective
+    scan, the RG-LRU recurrence: whichever the model runs)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import layers as L
+    engine = provider.engine
     tokens = [provider._tokenize(t, engine.cfg.vocab_size) for t in docs[:64]]
     e_kern = engine.embed_batch(tokens)
-    with mock.patch.object(L.flash_ops, "flash_attention", attention_ref):
+    with mock.patch.object(L.flash_ops, "flash_attention", attention_ref), \
+            mock.patch.object(L.ssm_ops, "ssm_scan", ssm_scan_ref), \
+            mock.patch.object(L.rglru_ops, "rg_lru", rg_lru_ref):
         e_plain = engine.embed_batch(tokens)
     cos = float(np.min(np.sum(e_kern * e_plain, axis=1)))
     err = float(np.abs(e_kern - e_plain).max())
-    log(phase="embed_vs_plain", texts=len(tokens), min_cosine=cos,
+    log(phase=f"{prefix}embed_vs_plain", texts=len(tokens), min_cosine=cos,
         max_abs_err=err)
-    check(cos > 0.999, f"embeddings differ from the plain path (cos {cos})")
+    check(cos > 0.999, f"{prefix}embeddings differ from the plain path "
+          f"(cos {cos})")
 
 
 # --------------------------------------------------------------------------
@@ -514,97 +688,120 @@ def profile_window(provider):
 
 
 # --------------------------------------------------------------------------
-# phase 6: the falcon-mamba-7b path at full width
+# phases 6 and 7: falcon-mamba-7b and recurrentgemma-9b at full width
 # --------------------------------------------------------------------------
 MAMBA = "falcon-mamba-7b"
+RGEMMA = "recurrentgemma-9b"
 
 
-def mamba_path(dev):
-    """Serve falcon-mamba-7b through the same entry points; its embed
-    requests run the selective-scan kernel once per layer."""
+def _layer_counts(cfg) -> dict:
+    kinds = [k for pattern, reps in cfg.stages() for k in pattern * reps]
+    return {k: kinds.count(k) for k in set(kinds)}
+
+
+def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
+    """Serve ``arch`` at full width through the same entry points as the
+    main path: one 64-passage embed request, a question request, a
+    device-resident index and top-5, 2 RAG completions, 5 raw requests on
+    4 slots.  ``counts`` are the kernel wrappers of this path, set to 0
+    just before it and read just after; each must equal its launches per
+    embed request (``per_embed``) or per decode step (``per_decode``)
+    times the requests or steps of this run.  Then each raw request is
+    served again alone in a fresh engine (a reused slot must not carry its
+    last occupant's state), and an embed batch and, where decode runs a
+    kernel, a decode step go through the kernels against the plain
+    versions."""
     from repro_torch.configs import get_config
     from repro_torch.core import (LocalTorchProvider, ModelResource,
                                   build_metaprompt)
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.models import model as M
     from repro_torch.params import init_params
     from repro_torch.retrieval import VectorIndex
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config(MAMBA)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
     torch.cuda.synchronize()
-    log(phase="mamba_weights", arch=cfg.name, params=cfg.num_params(),
-        layers=cfg.num_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
+    log(phase=f"{prefix}weights", arch=cfg.name, params=cfg.num_params(),
+        layers=cfg.num_layers, layer_kinds=_layer_counts(cfg),
+        d_model=cfg.d_model, d_inner=cfg.d_inner,
         ssm_state=cfg.ssm_state, vocab=cfg.vocab_size,
         weight_gb=sum(t.numel() * t.element_size()
                       for t in _tensors(params)) / 1e9,
         seconds=time.perf_counter() - t_phase,
         init_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    provider = LocalTorchProvider(MAMBA, use_smoke_config=False, device=dev,
+    provider = LocalTorchProvider(arch, use_smoke_config=False, device=dev,
                                   params=params)
     engine = provider.engine
-    rng = np.random.default_rng(SEED + 4)
+    rng = np.random.default_rng(seed)
     docs = passages(rng, 64, 90, 129)           # one request, bucket 128
     questions = passages(rng, 4, 30, 60)
-    emb_model = ModelResource("mamba-embed", 1, MAMBA)
-    gen_model = ModelResource("mamba-gen", 1, MAMBA, max_output_tokens=8)
+    emb_model = ModelResource(f"{prefix}embed", 1, arch)
+    gen_model = ModelResource(f"{prefix}gen", 1, arch, max_output_tokens=8)
 
-    ssm_scan.launches = 0
+    for fn in counts.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    doc_vecs = provider.embed(emb_model, docs)
-    index = VectorIndex(doc_vecs, device=dev)
-    q_vecs = provider.embed(emb_model, questions)
-    embed_requests = 2
-    scores, ids = index.topk(q_vecs, k=5)
-    answers, new_tokens = [], []
-    for qi in range(2):
-        mp = build_metaprompt(
-            "complete", f"Answer using the passages: {questions[qi]}",
-            [{"passage": docs[j]} for j in ids[qi, :3]])
-        before = provider.stats.snapshot()["output_tokens"]
-        answers.append(provider.complete(gen_model, mp, 1))
-        new_tokens.append(provider.stats.snapshot()["output_tokens"]
-                          - before)
-    # 5 raw requests on 4 slots: the fifth takes a freed slot
-    prompts = [[int(t) for t in rng.integers(0, 256, n)]
-               for n in rng.integers(40, 120, 5)]
-    raw = [engine.submit(p, max_new_tokens=8) for p in prompts]
-    engine.run_until_idle()
-    torch.cuda.synchronize()
+    with mock.patch.object(M, "decode_step", wraps=M.decode_step) as dec:
+        doc_vecs = provider.embed(emb_model, docs)
+        index = VectorIndex(doc_vecs, device=dev)
+        q_vecs = provider.embed(emb_model, questions)
+        embed_requests = 2
+        scores, ids = index.topk(q_vecs, k=5)
+        answers, new_tokens = [], []
+        for qi in range(2):
+            mp = build_metaprompt(
+                "complete", f"Answer using the passages: {questions[qi]}",
+                [{"passage": docs[j]} for j in ids[qi, :3]])
+            before = provider.stats.snapshot()["output_tokens"]
+            answers.append(provider.complete(gen_model, mp, 1))
+            new_tokens.append(provider.stats.snapshot()["output_tokens"]
+                              - before)
+        # 5 raw requests on 4 slots: the fifth takes a freed slot
+        prompts = [[int(t) for t in rng.integers(0, 256, n)]
+                   for n in rng.integers(40, 120, 5)]
+        raw = [engine.submit(p, max_new_tokens=8) for p in prompts]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ssm_scan.launches
+    launches = {name: fn.launches for name, fn in counts.items()}
+    decode_steps = dec.call_count
     peak = torch.cuda.max_memory_allocated()
 
     check(doc_vecs.shape == (64, cfg.d_model)
           and np.isfinite(doc_vecs).all()
           and np.allclose(np.linalg.norm(doc_vecs, axis=1), 1.0, atol=1e-3),
-          "falcon-mamba corpus embeddings are finite unit vectors")
+          f"{arch} corpus embeddings are finite unit vectors")
     check(ids.shape == (4, 5) and (0 <= ids).all() and (ids < 64).all()
           and np.all(np.diff(scores, axis=1) <= 1e-6),
-          "falcon-mamba top-5 ids in range, scores descending")
+          f"{arch} top-5 ids in range, scores descending")
     check(new_tokens == [8, 8]
           and all(len(a) == 1 and a[0].startswith("0: ") for a in answers),
-          f"falcon-mamba completions: {new_tokens}")
+          f"{arch} completions: {new_tokens}")
     check(all(r.finished and len(r.generated) == 8 for r in raw),
-          "falcon-mamba raw requests generated 8 tokens each")
-    check(launches == cfg.num_layers * embed_requests,
-          f"ssm_scan launched {launches} times, not {cfg.num_layers} per "
-          f"embed request")
+          f"{arch} raw requests generated 8 tokens each")
+    expected = {**{n: k * embed_requests for n, k in per_embed.items()},
+                **{n: k * decode_steps for n, k in per_decode.items()}}
+    for name, n in launches.items():
+        check(n > 0 and n == expected[name],
+              f"{arch}: {name} launched {n} times, not {expected[name]}")
     stats = provider.stats.snapshot()
-    log(phase="mamba_path", arch=cfg.name, embed_requests=embed_requests,
+    log(phase=f"{prefix}path", arch=cfg.name, embed_requests=embed_requests,
         embed_texts=len(docs) + len(questions), completions=len(answers),
         raw_requests=len(raw), slots=engine.n_slots,
         raw_slots=[r.slot for r in raw],
         prompt_tokens=stats["prompt_tokens"] + sum(map(len, prompts)),
         generated_tokens=stats["output_tokens"]
         + sum(len(r.generated) for r in raw),
-        engine_steps=engine.steps, wall_s=wall, peak_memory_gb=peak / 1e9,
-        launches={"ssm_scan": launches})
+        engine_steps=engine.steps, decode_steps=decode_steps, wall_s=wall,
+        peak_memory_gb=peak / 1e9, launches=launches,
+        launches_per_embed_request=per_embed,
+        launches_per_decode_step=per_decode)
 
     # each raw request against itself served alone from a fresh state
     t1 = time.perf_counter()
@@ -616,14 +813,44 @@ def mamba_path(dev):
         alone.append(fresh.generate(p, max_new_tokens=8))
         del fresh
     same = [r.generated == a for r, a in zip(raw, alone)]
-    log(phase="mamba_reused_slots", same_as_alone=same,
+    log(phase=f"{prefix}reused_slots", same_as_alone=same,
         fifth_request_slot=raw[4].slot, seconds=time.perf_counter() - t1)
-    check(all(same), f"a request in a reused slot differs from its run "
-          f"from a fresh state: {same}")
+    check(all(same), f"{arch}: a request in a reused slot differs from its "
+          f"run from a fresh state: {same}")
 
-    compare_embed_plain_scan(provider, docs)
-    log(phase="mamba_phase", wall_s=time.perf_counter() - t_phase)
+    compare_embed_plain(provider, docs, prefix)
+    if per_decode:
+        compare_decode_rounding(engine, prefix)
+    log(phase=f"{prefix}phase", wall_s=time.perf_counter() - t_phase)
     return launches
+
+
+def mamba_path(dev):
+    """Phase 6: falcon-mamba-7b, whose embed requests run the selective
+    scan once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    n = _layer_counts(get_config(MAMBA))
+    return serve_path(dev, MAMBA, "mamba_", {"ssm_scan": ssm_scan},
+                      {"ssm_scan": n["mamba"]}, {}, SEED + 4)
+
+
+def rgemma_path(dev):
+    """Phase 7: recurrentgemma-9b, whose embed requests run the RG-LRU
+    recurrence in each "rec" layer and flash attention in each "local"
+    layer, and whose decode steps run decode attention in each "local"
+    layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rg_lru.ops import rg_lru
+    n = _layer_counts(get_config(RGEMMA))
+    return serve_path(
+        dev, RGEMMA, "rg_",
+        {"rg_lru": rg_lru, "flash_attention": flash_attention,
+         "decode_attention": decode_attention},
+        {"rg_lru": n["rec"], "flash_attention": n["local"]},
+        {"decode_attention": n["local"]}, SEED + 9)
 
 
 def _tensors(tree):
@@ -634,20 +861,16 @@ def _tensors(tree):
     return [tree]
 
 
-def compare_embed_plain_scan(provider, docs):
-    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
-    from repro_torch.models import layers as L
-    engine = provider.engine
-    tokens = [provider._tokenize(t, engine.cfg.vocab_size) for t in docs]
-    e_kern = engine.embed_batch(tokens)
-    with mock.patch.object(L.ssm_ops, "ssm_scan", ssm_scan_ref):
-        e_plain = engine.embed_batch(tokens)
-    cos = float(np.min(np.sum(e_kern * e_plain, axis=1)))
-    err = float(np.abs(e_kern - e_plain).max())
-    log(phase="mamba_embed_vs_plain", texts=len(tokens), min_cosine=cos,
-        max_abs_err=err)
-    check(cos > 0.999, f"falcon-mamba embeddings differ from the plain scan "
-          f"(cos {cos})")
+def free_device(what: str):
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase=f"{what}_freed",
+        allocated_gb=torch.cuda.memory_allocated() / 1e9)
+
+
+KERNEL_ID_KEYS = ("name", "route", "source", "replaces")
+KERNEL_RUN_KEYS = ("max_abs_err", "ok", "ms", "plain_ms", "bound_ms",
+                   "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -673,25 +896,40 @@ def main() -> int:
     decode = check_decode(dev, flush)
     topk = check_topk(dev, flush)
     ssm = check_ssm(dev, flush)
+    # recurrentgemma-9b's shapes: 16 query heads over 1 KV head of 256
+    rg_flash = check_flash(dev, flush, KH=1, hd=256, window=2048,
+                           seed=SEED + 7)
+    rg_decode = check_decode(dev, flush, S=4096, KH=1, hd=256,
+                             positions=(4000, 2500, 2100, 37),
+                             windows=(2048,), seed=SEED + 8)
+    rg = check_rg_lru(dev, flush)
     del flush
     torch.cuda.empty_cache()
-    for row in (flash, *decode, topk, ssm):
-        check(row["ok"], f"{row['name']} disagrees with its plain version")
+    for row in (flash, *decode, topk, ssm, rg_flash, *rg_decode, rg):
+        check(row["ok"], f"{row['name']} disagrees with its plain version "
+              f"({row['shape']})")
 
-    provider, docs, launches = main_path(dev)
-    compare_plain(provider, docs)
+    provider, docs, olmo = main_path(dev)
+    compare_decode_plain(provider.engine)
+    compare_embed_plain(provider, docs)
     profile_window(provider)
     del provider, docs
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(phase="olmo_freed",
-        allocated_gb=torch.cuda.memory_allocated() / 1e9)
-    launches["ssm_scan"] = mamba_path(dev)
+    free_device("olmo")
+    mamba = mamba_path(dev)
+    free_device("mamba")
+    rgemma = rgemma_path(dev)
 
-    keys = ("name", "route", "source", "replaces", "max_abs_err", "ok", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict({k: row[k] for k in keys}, launches=launches[row["name"]])
-               for row in (flash, decode[0], topk, ssm)]
+    by_path = {"olmo-1b": olmo, MAMBA: mamba, RGEMMA: rgemma}
+    kernels = []
+    for row, wide in ((flash, rg_flash), (decode[0], rg_decode[0]),
+                      (topk, None), (ssm, None), (rg, None)):
+        name = row["name"]
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
+        entry = dict({k: row[k] for k in KERNEL_ID_KEYS + KERNEL_RUN_KEYS},
+                     launches=sum(paths.values()), launches_by_path=paths)
+        if wide is not None:        # the same kernel at this path's shapes
+            entry[RGEMMA] = {k: wide[k] for k in KERNEL_RUN_KEYS}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

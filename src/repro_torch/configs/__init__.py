@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config(arch)`` / ``list_archs()``.
 
-olmo-1b and falcon-mamba-7b are ported so far; the other architectures
-of the JAX package raise a ``KeyError`` that says so (ROADMAP.md, queue
-A).
+olmo-1b, falcon-mamba-7b and recurrentgemma-9b are ported so far; the
+other architectures of the JAX package raise a ``KeyError`` that says so
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -12,13 +12,13 @@ import importlib
 _ARCHS = {
     "olmo-1b": "olmo_1b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # architectures of the JAX package that the port does not serve yet
 NOT_YET_PORTED = (
-    "whisper-base", "phi-3-vision-4.2b", "recurrentgemma-9b",
-    "mixtral-8x7b", "deepseek-moe-16b", "granite-8b",
-    "qwen1.5-32b", "gemma3-12b",
+    "whisper-base", "phi-3-vision-4.2b", "mixtral-8x7b",
+    "deepseek-moe-16b", "granite-8b", "qwen1.5-32b", "gemma3-12b",
 )
 
 

@@ -26,6 +26,15 @@
 // the 32 keys with the probability broadcast by a shuffle; a lane owns
 // hd/32 dims, so each V row is one coalesced 256-byte read per warp (hd
 // 128, bf16).
+//
+// A block scores at most 8 query heads (GB): with more, as the 16 heads
+// over one KV head of recurrentgemma-9b (hd 256), a lane's accumulators
+// (GB x hd/32) and per-head softmax state would no longer fit in
+// registers, so each KV row is served by G/GB blocks side by side, each
+// for GB of its heads (the second reads the row's K and V again, mostly
+// from L2).  A split's chunk holds at least 16 * GB positions (the
+// wrapper's rule), so the partials it writes stay at a quarter of the K
+// and V bytes it reads.
 #include "common.cuh"
 
 using namespace repro;
@@ -34,24 +43,26 @@ namespace {
 
 constexpr int kWarps = 4;
 
+// G: the query heads this block scores; a row is (batch b, KV head kh,
+// sub-group of G heads), n_sub sub-groups per KV head.
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, const int* __restrict__ pos,
                       float* __restrict__ m_part, float* __restrict__ l_part,
                       float* __restrict__ acc_part, int S, int KH,
-                      int window, float scale) {
+                      int n_sub, int window, float scale) {
   constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // V dims per lane
   constexpr int LANES = HD / EPL;              // lanes that own V dims
   __shared__ __align__(16) float qs[G * HD];   // scaled q rows
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int row = blockIdx.y, b = row / KH, kh = row % KH;
+  const int row = blockIdx.y, b = row / n_sub / KH, kh = row / n_sub % KH;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool owner = lane < LANES;
-  const int H = KH * G;
 
+  // the row's G heads are consecutive in q's (B, H, hd) layout
   for (int i = threadIdx.x; i < G * HD; i += kWarps * 32)
-    qs[i] = to_f32(q[((size_t)b * H + kh * G) * HD + i]) * scale;
+    qs[i] = to_f32(q[(size_t)row * G * HD + i]) * scale;
   __syncthreads();
 
   // valid positions of this row: [lo, hi]; this block's chunk [t0, t1)
@@ -164,17 +175,19 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_part,
 template <typename T, int HD, int G>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const int* pos, void* o, float* m_part, float* l_part,
-                   float* acc_part, int B, int S, int KH, int window,
-                   float scale, int n_split, cudaStream_t stream) {
-  const dim3 grid(n_split, B * KH);
+                   float* acc_part, int B, int S, int KH, int n_sub,
+                   int window, float scale, int n_split,
+                   cudaStream_t stream) {
+  const int rows = B * KH * n_sub;
+  const dim3 grid(n_split, rows);
   decode_partial_kernel<T, HD, G><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), pos, m_part, l_part, acc_part, S, KH,
+      static_cast<const T*>(vc), pos, m_part, l_part, acc_part, S, KH, n_sub,
       window, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = min(1024, ((G * HD + 31) / 32) * 32);
-  decode_combine_kernel<T><<<B * KH, threads, 0, stream>>>(
+  decode_combine_kernel<T><<<rows, threads, 0, stream>>>(
       m_part, l_part, acc_part, static_cast<T*>(o), n_split * kWarps, G, HD);
   return cudaGetLastError();
 }
@@ -183,13 +196,13 @@ template <typename T, int HD>
 cudaError_t dispatch_g(int G, const void* q, const void* kc, const void* vc,
                        const int* pos, void* o, float* m_part,
                        float* l_part, float* acc_part, int B, int S, int KH,
-                       int window, float scale, int n_split,
+                       int n_sub, int window, float scale, int n_split,
                        cudaStream_t stream) {
   switch (G) {
-    case 1: return launch<T, HD, 1>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
-    case 2: return launch<T, HD, 2>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
-    case 4: return launch<T, HD, 4>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
-    case 8: return launch<T, HD, 8>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
+    case 1: return launch<T, HD, 1>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 2: return launch<T, HD, 2>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 4: return launch<T, HD, 4>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 8: return launch<T, HD, 8>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -198,13 +211,14 @@ template <typename T>
 cudaError_t dispatch(int hd, int G, const void* q, const void* kc,
                      const void* vc, const int* pos, void* o, float* m_part,
                      float* l_part, float* acc_part, int B, int S, int KH,
-                     int window, float scale, int n_split,
+                     int n_sub, int window, float scale, int n_split,
                      cudaStream_t stream) {
   switch (hd) {
-    case 16: return dispatch_g<T, 16>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
-    case 32: return dispatch_g<T, 32>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
-    case 64: return dispatch_g<T, 64>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
-    case 128: return dispatch_g<T, 128>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, window, scale, n_split, stream);
+    case 16: return dispatch_g<T, 16>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 32: return dispatch_g<T, 32>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 64: return dispatch_g<T, 64>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 128: return dispatch_g<T, 128>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 256: return dispatch_g<T, 256>(G, q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -212,27 +226,32 @@ cudaError_t dispatch(int hd, int G, const void* q, const void* kc,
 }  // namespace
 
 // q, o: (B, 1, H, hd); k_cache, v_cache: (B, S, KH, hd); pos: (B,) int32;
-// m_part, l_part: (B*KH, n_split*4, G) f32; acc_part: (..., G, hd) f32.
+// a block scores `group_block` of the H/KH query heads of a KV head;
+// m_part, l_part: (B*H/group_block, n_split*4, group_block) f32;
+// acc_part: (..., group_block, hd) f32.
 REPRO_EXPORT int decode_attention_fwd(const void* q, const void* kc,
                                       const void* vc, const void* pos,
                                       void* o, void* m_part, void* l_part,
                                       void* acc_part, int B, int S, int H,
                                       int KH, int hd, int window,
-                                      float scale, int n_split, int dtype,
+                                      float scale, int n_split,
+                                      int group_block, int dtype,
                                       void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || n_split <= 0)
+  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || n_split <= 0
+      || group_block <= 0 || (H / KH) % group_block != 0)
     return cudaErrorInvalidValue;
-  const int G = H / KH;
+  const int n_sub = H / KH / group_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   float* ap = static_cast<float*>(acc_part);
   if (dtype == kF32)
-    return dispatch<float>(hd, G, q, kc, vc, p, o, mp, lp, ap, B, S, KH,
-                           window, scale, n_split, s);
+    return dispatch<float>(hd, group_block, q, kc, vc, p, o, mp, lp, ap, B,
+                           S, KH, n_sub, window, scale, n_split, s);
   if (dtype == kBF16)
-    return dispatch<__nv_bfloat16>(hd, G, q, kc, vc, p, o, mp, lp, ap, B, S,
-                                   KH, window, scale, n_split, s);
+    return dispatch<__nv_bfloat16>(hd, group_block, q, kc, vc, p, o, mp, lp,
+                                   ap, B, S, KH, n_sub, window, scale,
+                                   n_split, s);
   return cudaErrorInvalidValue;
 }

@@ -12,7 +12,9 @@
 // What bounds it on this card: at the main-path shape (64 texts x 16
 // heads, L=128, hd=128, bf16, causal) q, k, v and o are 33.6 MB each, so
 // the bytes are 134 MB (40 us at 3.35 TB/s) and the causal products 4.3
-// GFLOP (4.3 us on the tensor cores): memory bounds it.
+// GFLOP (4.3 us on the tensor cores): memory bounds it.  The same holds
+// at recurrentgemma-9b's (16 q heads over 1 KV head, hd=256): q and o 67
+// MB each, k and v 4.2 MB each, 143 MB (43 us); 8.7 GFLOP (8.8 us).
 //
 // Design.  The TPU kernel carries (m, l, acc) across a sequential grid
 // axis; here a loop over tiles of 64 keys inside each block takes its
@@ -27,7 +29,12 @@
 //    products of bf16 values are exact in f32, and the scale is applied to
 //    the f32 scores, so only P's rounding differs from the f32 reference.
 //    Shared rows are padded by 8 bf16 so a warp's fragment loads hit 32
-//    different banks.
+//    different banks.  The K and V^T tiles sit in dynamic shared memory
+//    (70,656 bytes at hd 256, above the 48 KB a static array may take).
+//    At hd 256 (recurrentgemma-9b) the Q fragments would take 64 registers
+//    beside the 128 of the O accumulators and spill, so there the warp's Q
+//    rows are staged in shared memory too and read one 16-wide k-step at a
+//    time (104,448 bytes a block, 2 blocks per SM).
 //  * f32 (tests and f32 configurations): the products stay in f32 on the
 //    CUDA cores.  One block of 8 warps per (batch*head, 32 q rows); q, K
 //    and V tiles are staged in shared memory (K rows padded by a word);
@@ -62,6 +69,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Shared-memory layout of the bf16 kernel: padded K rows, padded V^T rows
+// and, above hd 128, the block's padded Q rows.
+template <int HD>
+struct MmaSmem {
+  static constexpr int KS = HD + 8;            // padded K (and Q) row
+  static constexpr int VS = kBK + 8;           // padded V^T row
+  static constexpr bool kQShared = HD > 128;   // Q fragments from smem
+  static constexpr int kBytes =
+      (kBK * KS + HD * VS + (kQShared ? kMmaBQ * KS : 0)) * 2;
+};
+
 // mma.sync fragment coordinates: lane = 4 * g + t.  A (16x16): regs 0..3
 // hold rows (g, g+8, g, g+8) at columns (2t, 2t, 2t+8, 2t+8) and +1.
 // B (16x8): regs 0,1 hold rows (2t, 2t+8) and +1 of column g.  C (16x8):
@@ -73,13 +91,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
                      int KH, int causal, int window, float scale) {
+  using L = MmaSmem<HD>;
   constexpr int KSTEPS = HD / 16;   // k-steps of Q K^T
   constexpr int OT = HD / 8;        // n-tiles of O
   constexpr int ST = kBK / 8;       // n-tiles of S
-  constexpr int KS = HD + 8;        // padded K row (bf16)
-  constexpr int VS = kBK + 8;       // padded V^T row (bf16)
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK * KS];
-  __shared__ __align__(16) __nv_bfloat16 vt[HD * VS];
+  constexpr int KS = L::KS;
+  constexpr int VS = L::VS;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* vt = ks + kBK * KS;
+  __nv_bfloat16* qsm = vt + HD * VS;  // [kMmaBQ][KS] when kQShared
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -93,17 +114,30 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + ((size_t)b * Sk * KH + kh) * HD;
   __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * HD;
 
-  // the warp's Q rows as A fragments, zero past Sq
-  uint32_t qa[KSTEPS][4];
+  // the warp's Q rows as A fragments (in registers, or staged in shared
+  // memory above hd 128), zero past Sq
+  uint32_t qa[L::kQShared ? 1 : KSTEPS][4];
+  if constexpr (L::kQShared) {
+    __nv_bfloat16* qw = qsm + warp * 16 * KS;
+    for (int i = lane; i < 16 * HD / 2; i += 32) {
+      const int row = i / (HD / 2), d = 2 * (i % (HD / 2));
+      *reinterpret_cast<uint32_t*>(qw + row * KS + d) =
+          r0 + row < Sq ? *reinterpret_cast<const uint32_t*>(
+                              qb + (r0 + row) * q_stride + d)
+                        : 0u;
+    }
+    __syncwarp();
+  } else {
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
+    for (int s = 0; s < KSTEPS; ++s) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + 8 * (i & 1);
-      const int col = s * 16 + 2 * t + 8 * (i >> 1);
-      qa[s][i] = row < Sq ? *reinterpret_cast<const uint32_t*>(
-                                qb + row * q_stride + col)
-                          : 0u;
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g + 8 * (i & 1);
+        const int col = s * 16 + 2 * t + 8 * (i >> 1);
+        qa[s][i] = row < Sq ? *reinterpret_cast<const uint32_t*>(
+                                  qb + row * q_stride + col)
+                            : 0u;
+      }
     }
   }
 
@@ -137,15 +171,37 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // S = Q K^T for 64 keys
     float s[ST][4];
+    if constexpr (L::kQShared) {
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
+      for (int j = 0; j < ST; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+      const __nv_bfloat16* qw = qsm + (warp * 16 + g) * KS + 2 * t;
 #pragma unroll
       for (int st = 0; st < KSTEPS; ++st) {
-        const __nv_bfloat16* kp = ks + (j * 8 + g) * KS + st * 16 + 2 * t;
-        mma_bf16(s[j], qa[st], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        const uint32_t a[4] = {
+            *reinterpret_cast<const uint32_t*>(qw + st * 16),
+            *reinterpret_cast<const uint32_t*>(qw + 8 * KS + st * 16),
+            *reinterpret_cast<const uint32_t*>(qw + st * 16 + 8),
+            *reinterpret_cast<const uint32_t*>(qw + 8 * KS + st * 16 + 8)};
+#pragma unroll
+        for (int j = 0; j < ST; ++j) {
+          const __nv_bfloat16* kp = ks + (j * 8 + g) * KS + st * 16 + 2 * t;
+          mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kp),
+                   *reinterpret_cast<const uint32_t*>(kp + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < ST; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+        for (int st = 0; st < KSTEPS; ++st) {
+          const __nv_bfloat16* kp = ks + (j * 8 + g) * KS + st * 16 + 2 * t;
+          mma_bf16(s[j], qa[st], *reinterpret_cast<const uint32_t*>(kp),
+                   *reinterpret_cast<const uint32_t*>(kp + 8));
+        }
       }
     }
 
@@ -366,8 +422,13 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, int B, int Sq, int Sk, int H, int KH, int causal,
                    int window, float scale, cudaStream_t stream) {
   if (dtype == kBF16) {
+    constexpr int smem = MmaSmem<HD>::kBytes;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = set_smem(flash_fwd_mma_kernel<HD>, smem);
+      if (err != cudaSuccess) return err;
+    }
     const dim3 grid(B * H, (Sq + kMmaBQ - 1) / kMmaBQ);
-    flash_fwd_mma_kernel<HD><<<grid, kMmaWarps * 32, 0, stream>>>(
+    flash_fwd_mma_kernel<HD><<<grid, kMmaWarps * 32, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -402,6 +463,7 @@ REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,
     case 32: return launch<32>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     case 64: return launch<64>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     case 128: return launch<128>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
+    case 256: return launch<256>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,20 +16,24 @@ import torch
 from .. import _build
 from .ref import decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+GROUPS = (1, 2, 4, 8, 16)
+MAX_GROUP_BLOCK = 8      # query heads one block scores (csrc)
 WARPS = 4                # partial (m, l, acc) triples per split (csrc)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"decode_attention_fwd": (_P,) * 8 + (_I,) * 6 + (_F, _I, _I,
-                                                                _P)}
+                                                                _I, _P)}
 
 
-def _n_splits(device: torch.device, rows: int, S: int) -> int:
+def _n_splits(device: torch.device, rows: int, S: int,
+              group_block: int) -> int:
     """Chunks each row's valid positions are cut into: about four blocks
-    per SM over all rows, and at least 16 positions per chunk."""
+    per SM over all rows, and at least 16 positions per chunk for each
+    query head a block scores (so a split's partials stay a quarter of
+    the K/V bytes it reads)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // rows), -(-S // 16)))
+    return max(1, min(-(-4 * sms // rows), -(-S // (16 * group_block))))
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
@@ -59,20 +63,21 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     o = torch.empty_like(q)
     if B == 0:
         return o
-    G, rows = H // KH, B * KH
-    split = _n_splits(q.device, rows, S)
-    m_part = torch.empty((rows, split * WARPS, G), dtype=torch.float32,
+    gb = min(H // KH, MAX_GROUP_BLOCK)
+    rows = B * H // gb
+    split = _n_splits(q.device, rows, S, gb)
+    m_part = torch.empty((rows, split * WARPS, gb), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((rows, split * WARPS, G, hd), dtype=torch.float32,
-                           device=q.device)
+    acc_part = torch.empty((rows, split * WARPS, gb, hd),
+                           dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else hd ** -0.5
     lib = _build.load(_SIGNATURES)
     rc = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pos_b.data_ptr(), o.data_ptr(), m_part.data_ptr(),
         l_part.data_ptr(), acc_part.data_ptr(), B, S, H, KH, hd,
-        int(window), float(scale), split, _DTYPES[q.dtype],
+        int(window), float(scale), split, gb, _DTYPES[q.dtype],
         _build.stream_ptr(q.device))
     _build.check_launch(lib, rc, "decode_attention")
     decode_attention.launches += 1

@@ -2,8 +2,8 @@
 ``repro/models/config.py``).
 
 The same frozen dataclass and field names as the JAX package, for the
-fields the dense decoder and the Mamba-1 block read and the features the
-port still refuses.
+fields the dense decoder, the Mamba-1 block and the RG-LRU block read and
+the features the port still refuses.
 Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
 ``remat*``, ``ssm_fuse``, cost-probe overrides, sharding padding) are
 dropped: the port picks its kernels by the device a tensor lives on, not
@@ -13,7 +13,7 @@ Layer-kind strings used in ``pattern``:
   "attn"   full (global) causal self-attention
   "local"  sliding-window causal self-attention (window = ``window_size``)
   "swa"    alias of "local"
-  "rec"    RG-LRU recurrence block (not yet ported, see ROADMAP.md)
+  "rec"    RG-LRU recurrence block (Griffin; d_inner, rglru_blocks)
   "mamba"  Mamba-1 selective-SSM block (no separate FFN; d_ff == 0)
 """
 
@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 ATTN_KINDS = ("attn", "local", "swa", "global")
-PORTED_KINDS = ATTN_KINDS + ("mamba",)
+PORTED_KINDS = ATTN_KINDS + ("mamba", "rec")
 
 
 @dataclass(frozen=True)
@@ -51,12 +51,13 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma-style sqrt(d) embedding multiplier
-    # ---- SSM (Mamba-1) ----
+    # ---- SSM (Mamba-1) / RG-LRU ----
     d_inner: int = 0
     ssm_state: int = 0
     conv_width: int = 4
     dt_rank: int = 0
     scan_chunk: int = 256            # chunk of the stateful linear scan
+    rglru_blocks: int = 16           # block-diagonal gate blocks
     # ---- features not yet ported (check_supported refuses them) ----
     num_experts: int = 0
     is_encoder_decoder: bool = False
@@ -119,6 +120,10 @@ class ModelConfig:
             per_kind["mamba"] = (d * 2 * di + self.conv_width * di
                                  + di * (self.dt_rank + 2 * s)
                                  + self.dt_rank * di + di * s + di + di * d)
+            bs = di // self.rglru_blocks
+            per_kind["rec"] = (2 * d * di + self.conv_width * di
+                               + 2 * self.rglru_blocks * bs * bs + di
+                               + di * d + ffn)
         for pattern, reps in self.stages():
             for kind in pattern:
                 n += per_kind[kind] * reps

@@ -1,20 +1,21 @@
-"""Layer primitives of the dense decoder and the Mamba-1 block (port of
-``repro/models/layers.py``).
+"""Layer primitives of the dense decoder, the Mamba-1 block and the RG-LRU
+block (port of ``repro/models/layers.py``).
 
 Plain functions on tensors with the JAX package's parameter layout
 (``wq`` is (d, H, hd), ``wo`` is (H, hd, d), ``in_proj`` is (d, 2 di),
 ...), so weights carried over by ``repro_torch.params.from_jax`` run
 unchanged.  Full-sequence attention goes through
 ``kernels.flash_attention``, decode attention through
-``kernels.decode_attention`` and the full-sequence selective scan of a
-Mamba layer through ``kernels.ssm_scan``: the CUDA kernels for tensors on
-the GPU, their plain versions for tensors on the CPU.  The chunked
-attention of chunked prefill and the stateful linear scan of Mamba
-prefill and decode have no kernel in the JAX package either and stay
-plain PyTorch here.
+``kernels.decode_attention``, the full-sequence selective scan of a
+Mamba layer through ``kernels.ssm_scan`` and the full-sequence recurrence
+of an RG-LRU layer through ``kernels.rg_lru``: the CUDA kernels for
+tensors on the GPU, their plain versions for tensors on the CPU.  The
+chunked attention of chunked prefill and the stateful linear scan of
+Mamba and RG-LRU prefill and decode have no kernel in the JAX package
+either and stay plain PyTorch here.
 
 bf16 rounds where the JAX package rounds: norms and rope in f32 and cast
-back, projections as bf16 products, the scan in f32.  MoE, RG-LRU,
+back, projections as bf16 products, the scans in f32.  MoE,
 cross-attention and the int8 KV cache are not ported yet
 (``config.check_supported``).
 """
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rg_lru import ops as rglru_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 from .config import ModelConfig
@@ -454,3 +456,101 @@ def init_mamba_cache(cfg: ModelConfig, B: int, dtype, lead=(), device=None):
                                 dtype=dtype, device=device),
             "ssm": torch.zeros((*lead, B, cfg.d_inner, cfg.ssm_state),
                                dtype=F32, device=device)}
+
+
+# --------------------------------------------------------------------------
+# RG-LRU block (Griffin / RecurrentGemma recurrent block)
+# --------------------------------------------------------------------------
+def init_rglru(cfg: ModelConfig, generator, lead=(), device=None):
+    """RG-LRU weights (stacked over ``lead``) at the JAX init's shapes and
+    dtypes: projections, the conv and the block-diagonal gates in
+    ``param_dtype``; the gate biases and ``lam`` in f32 with the JAX init's
+    constants (zero biases, lam = 2, a base decay of sigmoid(2))."""
+    d, di, cw, nb = cfg.d_model, cfg.d_inner, cfg.conv_width, cfg.rglru_blocks
+    bs = di // nb
+    dt = cfg.param_torch_dtype
+    return {
+        "w_x": normal_init((*lead, d, di), d ** -0.5, dt, generator, device),
+        "w_gate": normal_init((*lead, d, di), d ** -0.5, dt, generator,
+                              device),
+        "conv_w": normal_init((*lead, cw, di), cw ** -0.5, dt, generator,
+                              device),
+        "conv_b": torch.zeros((*lead, di), dtype=dt, device=device),
+        "rg_a": normal_init((*lead, nb, bs, bs), bs ** -0.5, dt, generator,
+                            device),
+        "rg_a_b": torch.zeros((*lead, di), dtype=F32, device=device),
+        "rg_x": normal_init((*lead, nb, bs, bs), bs ** -0.5, dt, generator,
+                            device),
+        "rg_x_b": torch.zeros((*lead, di), dtype=F32, device=device),
+        "lam": torch.full((*lead, di), 2.0, dtype=F32, device=device),
+        "out_proj": normal_init((*lead, di, d), di ** -0.5, dt, generator,
+                                device),
+    }
+
+
+def _blockdiag(x, w, nb: int):
+    """x: (B, S, di) times the block-diagonal (nb, di/nb, di/nb) w."""
+    B, S, di = x.shape
+    xb = x.reshape(B, S, nb, di // nb)
+    return torch.einsum("bsnq,nqp->bsnp", xb, w).reshape(B, S, di)
+
+
+_RG_C = 8.0
+
+
+def _rglru_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False):
+    """x_c: (B, S, di) post-conv activations -> (h f32, h_last).
+
+    The gates are computed in f32.  Without a state in or out (the
+    full-sequence forward) the recurrence is ``rglru_ops.rg_lru``, where
+    the JAX package calls its Pallas kernel; otherwise it is the stateful
+    plain scan."""
+    nb = cfg.rglru_blocks
+    r = torch.sigmoid(_blockdiag(x_c, p["rg_a"], nb).to(F32) + p["rg_a_b"])
+    i = torch.sigmoid(_blockdiag(x_c, p["rg_x"], nb).to(F32) + p["rg_x_b"])
+    log_a = -_RG_C * r * F.softplus(p["lam"])                  # <= 0
+    a = torch.exp(log_a)
+    gated = i * x_c.to(F32)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
+        * gated
+    if h0 is None and not return_state:
+        return rglru_ops.rg_lru(a, b), None
+    h_all, h_last = linear_scan(a, b, h0, chunk=cfg.scan_chunk)
+    return h_all, (h_last if return_state else None)
+
+
+def _gelu(x):
+    # the gate branch is jax.nn.gelu's default (tanh approximation),
+    # whatever cfg.act is
+    return F.gelu(x, approximate="tanh")
+
+
+def rglru_apply_train(cfg: ModelConfig, p, x):
+    xb = x @ p["w_x"]
+    g = _gelu(x @ p["w_gate"])
+    x_c, _ = causal_conv(xb, p["conv_w"], p["conv_b"])
+    h, _ = _rglru_core(cfg, p, x_c)
+    y = (h * g.to(F32)).to(x.dtype)
+    return y @ p["out_proj"]
+
+
+def rglru_apply_decode(cfg: ModelConfig, p, x, cache):
+    """x: (B, C, d), any C; cache: {"conv": (B, cw-1, di), "h": (B, di)
+    f32}.  Returns (y, cache): the cache given, its state written in
+    place (the engine hands in views of its slot rows)."""
+    xb = x @ p["w_x"]
+    g = _gelu(x @ p["w_gate"])
+    x_c, conv_state = causal_conv(xb, p["conv_w"], p["conv_b"],
+                                  state=cache["conv"])
+    h, h_last = _rglru_core(cfg, p, x_c, h0=cache["h"], return_state=True)
+    y = (h * g.to(F32)).to(x.dtype)
+    cache["conv"].copy_(conv_state)
+    cache["h"].copy_(h_last)
+    return y @ p["out_proj"], cache
+
+
+def init_rglru_cache(cfg: ModelConfig, B: int, dtype, lead=(), device=None):
+    return {"conv": torch.zeros((*lead, B, cfg.conv_width - 1, cfg.d_inner),
+                                dtype=dtype, device=device),
+            "h": torch.zeros((*lead, B, cfg.d_inner), dtype=F32,
+                             device=device)}

@@ -1,6 +1,6 @@
-"""Stack assembly for the dense decoder and the Mamba-1 stack: train
-forward, prefill, chunked prefill and decode (port of
-``repro/models/model.py``).
+"""Stack assembly for the dense decoder, the Mamba-1 stack and the
+Griffin hybrid (RG-LRU and local attention): train forward, prefill,
+chunked prefill and decode (port of ``repro/models/model.py``).
 
 Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
 "stages": [{"b0": {...}, ...}, ...]}`` with each stage's weights stacked
@@ -8,8 +8,9 @@ along a leading ``repeats`` axis (see ``ModelConfig.stages``).  Where the
 JAX package scans over that axis, the port loops over it.  Caches keep
 the same stage structure: (repeats, B, S, KH, hd) keys and values of an
 attention layer, (repeats, B, cw-1, di) conv and (repeats, B, di, N) ssm
-state of a Mamba layer.  Decode and chunked prefill write them in place
-and return them.
+state of a Mamba layer, (repeats, B, cw-1, di) conv and (repeats, B, di)
+f32 ``h`` of an RG-LRU layer.  Decode and chunked prefill write them in
+place and return them.
 
 Batch dict convention: ``tokens`` (B, S) int token ids (-1 pads).
 Parameters are drawn by ``repro_torch.params.init_params``.
@@ -47,6 +48,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
     """Returns (x, new_cache)."""
     if kind == "mamba":
         return _apply_mamba(cfg, p, x, mode=mode, cache=cache)
+    if kind == "rec":
+        return _apply_rec(cfg, p, x, mode=mode, cache=cache)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not yet ported "
                                   "to PyTorch (see ROADMAP.md, queue A)")
@@ -84,6 +87,25 @@ def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache):
                                  device=x.device))
     y, c = L.mamba_apply_decode(cfg, p["mamba"], h, c)
     return x + y, {"mamba": c}
+
+
+def _apply_rec(cfg: ModelConfig, p, x, *, mode: str, cache):
+    """An RG-LRU layer: norm, the block, a residual, then norm, the FFN, a
+    residual.  As for Mamba, prefill is decode from a zero state and
+    extend is decode."""
+    h = L.norm_apply(cfg, p.get("ln1", {}), x)
+    new_cache = {}
+    if mode == "train":
+        y = L.rglru_apply_train(cfg, p["rec"], h)
+    else:
+        c = (cache["rec"] if mode in ("decode", "extend")
+             else L.init_rglru_cache(cfg, x.shape[0],
+                                     cfg.compute_torch_dtype,
+                                     device=x.device))
+        y, new_cache["rec"] = L.rglru_apply_decode(cfg, p["rec"], h, c)
+    x = x + y
+    h2 = L.norm_apply(cfg, p.get("ln2", {}), x)
+    return x + L.ffn_apply(cfg, p["ffn"], h2), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -171,6 +193,9 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
         if kind == "mamba":
             return {"mamba": L.init_mamba_cache(cfg, B, dt, (repeats,),
                                                 device)}
+        if kind == "rec":
+            return {"rec": L.init_rglru_cache(cfg, B, dt, (repeats,),
+                                              device)}
         shape = (repeats, B, cache_len, KH, hd)
         return {"attn": {"k": torch.zeros(shape, dtype=dt, device=device),
                          "v": torch.zeros(shape, dtype=dt, device=device)}}
@@ -180,12 +205,14 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
 
 
 def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
-    """Zero one batch row of every recurrent cache leaf (a Mamba stage's
-    conv and ssm state); attention caches are masked by position and stay."""
+    """Zero one batch row of every recurrent cache leaf (the conv and ssm
+    state of a Mamba layer, the conv and h state of an RG-LRU layer);
+    attention caches are masked by position and stay."""
     for stage in cache:
         for block in stage.values():
-            for t in block.get("mamba", {}).values():
-                t[:, row].zero_()
+            for kind in ("mamba", "rec"):
+                for t in block.get(kind, {}).values():
+                    t[:, row].zero_()
 
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):

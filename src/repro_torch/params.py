@@ -29,7 +29,10 @@ def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device):
     if kind == "mamba":
         p["mamba"] = L.init_mamba(cfg, generator, (reps,), device)
         return p
-    p["attn"] = L.init_attention(cfg, generator, (reps,), device)
+    if kind == "rec":
+        p["rec"] = L.init_rglru(cfg, generator, (reps,), device)
+    else:
+        p["attn"] = L.init_attention(cfg, generator, (reps,), device)
     p["ln2"] = L.init_norm(cfg, d, (reps,), device)
     p["ffn"] = L.init_ffn(cfg, generator, (reps,), device)
     return p

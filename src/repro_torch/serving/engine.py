@@ -17,7 +17,8 @@ on the working slot's row alone and writes its cache rows in place; the
 other slots' rows are never touched.
 
 A slot's recurrent state (the ``conv`` and ``ssm`` leaves of a Mamba
-layer's cache) is zeroed when a request is admitted to it: the previous
+layer's cache, the ``conv`` and ``h`` leaves of an RG-LRU layer's) is
+zeroed when a request is admitted to it: the previous
 occupant's state, and whatever idle decode steps added to it, would
 otherwise carry into the new request.  A KV cache needs no reset: its
 stale rows lie past the new request's positions and are masked.  (The

@@ -7,8 +7,9 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 
 Tolerances are the kernel tolerances of ``tests/test_kernels.py``: 2e-5
 in f32 and 2e-2 in bf16 (one bf16 rounding of the output), five times
-those for the selective scan (its test there), top-k ids exact except at
-ranks whose plain scores tie within 1e-6.
+those for the selective scan and the RG-LRU recurrence (their tests
+there), top-k ids exact except at ranks whose plain scores tie within
+1e-6.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rg_lru import ops as rglru_ops
+from repro_torch.kernels.rg_lru.ref import rg_lru_ref
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.topk_sim import ops as topk_ops
@@ -71,7 +74,10 @@ def assert_topk_ids_match(ids, ref_ids, ref_scores, tie_tol=1e-6):
      (2, 48, 4, 1, 16, True, 16),        # MQA + sliding window
      (1, 80, 6, 2, 64, False, 0),        # bidirectional
      (1, 33, 4, 2, 16, True, 0),         # ragged edge
-     (64, 128, 16, 16, 128, True, 0)])   # olmo-1b embed batch
+     (64, 128, 16, 16, 128, True, 0),    # olmo-1b embed batch
+     (2, 64, 16, 1, 256, True, 0),       # hd 256, 16 heads over 1 KV head
+     (2, 100, 16, 1, 256, True, 48),     # ... ragged, sliding window
+     (64, 128, 16, 1, 256, True, 2048)])  # recurrentgemma-9b embed batch
 def test_flash_attention_kernel(cuda, B, S, H, KH, hd, causal, window,
                                 dtype):
     rng = np.random.default_rng(0)
@@ -98,6 +104,25 @@ def test_decode_attention_kernel(cuda, B, S, H, KH, hd, window, dtype):
     kc = _t(rng, (B, S, KH, hd), dtype, cuda)
     vc = _t(rng, (B, S, KH, hd), dtype, cuda)
     pos = torch.from_numpy(rng.integers(0, S, B).astype(np.int32)).to(cuda)
+    before = decode_ops.decode_attention.launches
+    out = decode_ops.decode_attention(q, kc, vc, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + 1
+    _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,window,pos",
+                         [(2, 300, 64, [299, 10]),
+                          (4, 4096, 2048, [4000, 2500, 1000, 37])])
+def test_decode_attention_kernel_mqa_hd256(cuda, B, S, window, pos, dtype):
+    """recurrentgemma-9b's local layers: 16 query heads over one KV head
+    of 256, positions past the window."""
+    rng = np.random.default_rng(5)
+    q = _t(rng, (B, 1, 16, 256), dtype, cuda)
+    kc = _t(rng, (B, S, 1, 256), dtype, cuda)
+    vc = _t(rng, (B, S, 1, 256), dtype, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
     before = decode_ops.decode_attention.launches
     out = decode_ops.decode_attention(q, kc, vc, pos, window=window)
     torch.cuda.synchronize()
@@ -190,3 +215,34 @@ def test_ssm_scan_rejects_bad_input(cuda):
         ssm_ops.ssm_scan(x.transpose(0, 1), dt, Bm, Cm, A_log, D)
     with pytest.raises(ValueError):                 # a CPU tensor among them
         ssm_ops.ssm_scan(x, dt, Bm, Cm, A_log, D.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di", [(2, 80, 48), (1, 200, 32),
+                                    (4, 256, 4096)])   # recurrentgemma width
+def test_rg_lru_kernel(cuda, B, S, di, dtype):
+    """``tests/test_kernels.py``'s rg_lru inputs: a in [0.5, 0.999)."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, di)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    b = _t(rng, (B, S, di), dtype, cuda)
+    before = rglru_ops.rg_lru.launches
+    out = rglru_ops.rg_lru(a, b)
+    torch.cuda.synchronize()
+    assert rglru_ops.rg_lru.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, S, di)
+    tol = 5 * TOLS[dtype]
+    torch.testing.assert_close(out.float(), rg_lru_ref(a, b).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_rg_lru_rejects_bad_input(cuda):
+    a = torch.zeros((2, 16, 64), device=cuda)
+    with pytest.raises(TypeError):                  # b not in a's dtype
+        rglru_ops.rg_lru(a, a.bfloat16())
+    with pytest.raises(ValueError):                 # shapes differ
+        rglru_ops.rg_lru(a, a[:, :8])
+    with pytest.raises(ValueError):                 # not contiguous
+        rglru_ops.rg_lru(a.transpose(0, 1), a.transpose(0, 1))
+    with pytest.raises(ValueError):                 # a CPU tensor
+        rglru_ops.rg_lru(a, a.cpu())
