@@ -4,7 +4,9 @@
 
 Phases (any failed check exits non-zero; nothing is caught and hidden):
   1. the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/csrc`` (one nvcc call, one shared library);
+     ``src/repro_torch/csrc`` (one nvcc per source, all at once, linked into
+     one shared library); each flash-attention instance's registers,
+     spills (``-Xptxas -v``), shared bytes and resident blocks per SM;
   2. each kernel against its plain PyTorch version at the main path's
      shapes (olmo-1b: flash attention on a 64-text embed batch of 128
      tokens, decode attention over 4 slots x 2048 positions, the block-max
@@ -15,13 +17,19 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      slots x 4096 positions with its window of 2048, the RG-LRU recurrence
      of its embed batch, di=4096, f32), with CUDA-event times of the
      kernel, the plain version and, where one exists, one PyTorch library
-     call computing the same function; bounds from the card's peak rates;
+     call computing the same function; bounds from the card's peak rates.
+     Flash attention and its SDPA yardstick are timed in interleaved pairs
+     (median and min, and their ratio).  Top-100 ids must equal the plain
+     version's exactly, on a random corpus and on one whose rows repeat
+     1,000 distinct vectors (ties rank by id);
   3. the main path at full olmo-1b width through the user's entry points
      (LocalTorchProvider.embed, VectorIndex.topk, LocalTorchProvider.complete,
      ServingEngine.submit/run_until_idle), with every kernel's launch count
      read from this run alone;
-  4. one full-width decode step and one embed batch through the kernels
-     against the same through the plain versions;
+  4. one full-width decode step (each decode-attention call held against
+     the plain version in bf16, the logits in f32, as in phase 7) and one
+     embed batch through the kernels against the same through the plain
+     versions;
   5. a traced window of the engine serving 4 requests at once: device
      time by kernel group and the device's idle share;
   6. olmo-1b freed, the falcon-mamba-7b path at full width through the
@@ -42,8 +50,9 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      whose logits are held against the plain path in f32 (in bf16 one
      rounding of one attention output already moves them past the
      tolerance at this depth; the script measures that floor);
-  8. a ``{"kernels": [...]}`` line (each kernel's launches summed over
-     the paths, and by path), then the card, then the result line.
+  8. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+     launches summed over the paths, and by path), then the card, then the
+     result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -53,6 +62,8 @@ from __future__ import annotations
 
 import gc
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -93,6 +104,32 @@ def max_sm_clock_hz() -> float:
     return float(mhz) * 1e6
 
 
+def time_pairs_ms(fn, lib, flush, pairs=50, warmup=3):
+    """Device times in ms of ``fn`` and ``lib`` (the same function through
+    a library call) in ``pairs`` interleaved pairs, who goes first
+    alternating, from CUDA events, the L2 cache flushed before every call:
+    (times of fn, times of lib), pair by pair."""
+    for _ in range(warmup):
+        fn()
+        lib()
+    events = []
+    for i in range(pairs):
+        rec = {}
+        order = (("fn", fn), ("lib", lib))
+        for name, f in order if i % 2 else order[::-1]:
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            f()
+            b.record()
+            rec[name] = (a, b)
+        events.append(rec)
+    torch.cuda.synchronize()
+    return ([r["fn"][0].elapsed_time(r["fn"][1]) for r in events],
+            [r["lib"][0].elapsed_time(r["lib"][1]) for r in events])
+
+
 def time_ms(fn, flush, iters=20, warmup=3):
     """Mean device time of ``fn`` in ms from CUDA events, the L2 cache
     flushed before every timed call (the main path finds its inputs cold)."""
@@ -126,17 +163,52 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def ids_match(ids, ref_ids, ref_scores, tie_tol=1e-6) -> bool:
-    """Equal top-k ids, except at ranks whose plain scores tie a
-    neighbouring rank's within ``tie_tol``."""
-    ids, ref_ids = ids.cpu().numpy(), ref_ids.cpu().numpy()
-    s = ref_scores.double().cpu().numpy()
-    for qi, ri in zip(*np.nonzero(ids != ref_ids)):
-        near = [abs(s[qi, ri] - s[qi, j]) for j in (ri - 1, ri + 1)
-                if 0 <= j < s.shape[1]]
-        if not near or min(near) > tie_tol:
-            return False
-    return True
+def ids_match(ids, ref_ids) -> bool:
+    """Equal top-k ids at every rank (both rank by score desc, id asc)."""
+    return torch.equal(ids.cpu().long(), ref_ids.cpu().long())
+
+
+def ptxas_spills(text: str) -> dict:
+    """{(kernel name, hd): (spill store bytes, spill load bytes)} of the
+    flash-attention instances in ``nvcc -Xptxas -v`` output."""
+    spills, current = {}, None
+    for line in text.splitlines():
+        named = re.search(
+            r"entry function '.*(flash_fwd_\w+?_kernel)ILi(\d+)E", line)
+        if named:
+            current = (named.group(1), int(named.group(2)))
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found and current:
+            spills[current] = (int(found.group(1)), int(found.group(2)))
+    return spills
+
+
+def flash_instances(_build):
+    """Phase 1: each flash-attention instance's registers, local bytes,
+    shared bytes and resident blocks per SM (CUDA runtime), and the spills
+    ``nvcc -Xptxas -v`` reported for it when this process built the
+    library (None when an earlier process did; logged only).  A bf16
+    instance, the one the models run, must keep no local memory (no
+    spills) and be resident."""
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                         instance_info)
+    spills = ptxas_spills(
+        _build.BUILD_LOG.get("log", {}).get("flash_attention.cu", ""))
+    rows = []
+    for name, dt in (("flash_fwd_mma_kernel", torch.bfloat16),
+                     ("flash_fwd_f32_kernel", torch.float32)):
+        for hd in HEAD_DIMS:
+            st, ld = spills.get((name, hd), (None, None))
+            rows.append(dict(kernel=name, hd=hd, **instance_info(hd, dt),
+                             spill_store_bytes=st, spill_load_bytes=ld))
+    log(phase="flash_instances", instances=rows)
+    for r in rows:
+        if r["kernel"] == "flash_fwd_mma_kernel":
+            check(r["local_bytes"] == 0,
+                  f"flash attention spills at hd {r['hd']}: {r}")
+            check(r["blocks_per_sm"] > 0, f"flash attention at hd {r['hd']} "
+                  f"cannot be resident: {r}")
 
 
 # --------------------------------------------------------------------------
@@ -167,11 +239,10 @@ def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     # a window of at least L masks nothing beyond the causal mask
     check(window == 0 or window >= L, "SDPA yardstick needs window >= L")
-    if KH == H:
-        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
-    else:
-        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                   enable_gqa=True), flush)
+    gqa = {} if KH == H else {"enable_gqa": True}
+    k_ms, lib_ms = time_pairs_ms(
+        kern, lambda: sdpa(qt, kt, vt, is_causal=True, **gqa), flush)
+    med, lib_med = statistics.median(k_ms), statistics.median(lib_ms)
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
     flops = 4 * B * H * (L * (L + 1) // 2) * hd
     b_ms, b_by = bound_ms(nbytes, flops, dt)
@@ -184,10 +255,12 @@ def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
         replaces="src/repro/kernels/flash_attention/kernel.py:80",
         shape=shape,
         max_abs_err=err, atol=TOLS[dt], rtol=TOLS[dt], ok=ok,
-        ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush, iters=5),
-        library_ms=lib,
+        ms=med, ms_min=min(k_ms), plain_ms=time_ms(plain, flush, iters=5),
+        library_ms=lib_med, library_ms_min=min(lib_ms),
         library="F.scaled_dot_product_attention"
         + ("" if KH == H else "(enable_gqa)"),
+        timed_pairs=len(k_ms), ratio_to_library=med / lib_med,
+        ratio_to_library_min=min(k_ms) / min(lib_ms),
         bound_ms=b_ms, bound_by=b_by)
     log(**row)
     return row
@@ -269,7 +342,14 @@ def check_topk(dev, flush):
                         rtol=TOLS[torch.float32])
     s, i = topk_sim(corpus, queries, k)
     s_ref, i_ref = topk_sim_ref(corpus, queries, k)
-    ids_ok = ids_match(i, i_ref, s_ref)
+    ids_ok = ids_match(i, i_ref)
+    # rows repeating 1,000 distinct vectors: whole groups tie, by id
+    distinct = torch.randn((1000, D), generator=g, device=dev)
+    dup = distinct[torch.randint(0, 1000, (N,), generator=g, device=dev)]
+    del distinct
+    dup_ok = ids_match(topk_sim(dup, queries, k)[1],
+                       topk_sim_ref(dup, queries, k)[1])
+    del dup
     n_blocks = out.shape[1]
     nbytes = (N * D + Q * D + Q * n_blocks) * 4
     b_ms, b_by = bound_ms(nbytes, 2 * Q * N * D, torch.float32)
@@ -278,9 +358,12 @@ def check_topk(dev, flush):
         source="src/repro_torch/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:64",
         shape=f"corpus ({N}, {D}) f32, queries ({Q}, {D}), block_n {bn}; "
-              f"top-{k} ids vs plain: {'exact' if ids_ok else 'DIFFER'}",
+              f"top-{k} ids vs plain: {'exact' if ids_ok else 'DIFFER'}; "
+              f"on rows of 1,000 distinct vectors: "
+              f"{'exact' if dup_ok else 'DIFFER'}",
         max_abs_err=err, atol=TOLS[torch.float32], rtol=TOLS[torch.float32],
-        ok=ok and ids_ok,
+        ok=ok and ids_ok and dup_ok, ids_exact=ids_ok,
+        duplicated_corpus_ids_exact=dup_ok,
         ms=time_ms(lambda: block_max_scores(cn, qn, block_n=bn), flush),
         plain_ms=time_ms(lambda: block_max_scores_ref(cn, qn, block_n=bn),
                          flush, iters=5),
@@ -505,42 +588,15 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def compare_decode_plain(engine):
-    """One full-width decode step from the engine's cache (cloned: the step
-    writes in place) through the decode kernel and through its plain
-    version."""
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.models import layers as L
-    from repro_torch.models import model as M
-    dev = engine.device
-    toks = torch.tensor([[101], [7], [230], [64]], dtype=torch.int32,
-                        device=dev)
-    pos = torch.tensor([1500, 700, 123, 9], dtype=torch.int32, device=dev)
-
-    def step():
-        return M.decode_step(engine.cfg, engine.params, toks,
-                             _map(torch.clone, engine.cache), pos)[0]
-    kern = step()
-    with mock.patch.object(L.decode_ops, "decode_attention",
-                           decode_attention_ref):
-        plain = step()
-    err = max_err(kern, plain)
-    ok = torch.allclose(kern, plain, atol=LOGITS_TOL, rtol=LOGITS_TOL)
-    log(phase="decode_step_vs_plain", logits=list(kern.shape),
-        max_abs_err=err, atol=LOGITS_TOL, rtol=LOGITS_TOL, ok=ok,
-        pos=pos.tolist())
-    check(torch.isfinite(kern).all().item(), "decode logits finite")
-    check(ok, f"decode_step logits differ from the plain path by {err}")
-
-
 def compare_decode_rounding(engine, prefix):
-    """recurrentgemma-9b's decode step against the plain path.  Over its
-    38 random-weight layers one bf16 ulp in one attention output moves the
-    bf16 logits by more than LOGITS_TOL (logged as the one-ulp noise floor),
-    so at bf16 the step holds each of its decode-attention calls against
-    the plain version on the same inputs (TOLS), and the logits are held
-    at LOGITS_TOL in the same step in f32 (weights and cache cast to f32,
-    the kernel's f32 instance), where rounding stays far below it."""
+    """One full-width decode step from the engine's cache (cloned: the step
+    writes in place) against the plain path.  Over a random-weight stack
+    one bf16 ulp in one attention output moves the bf16 logits by more
+    than LOGITS_TOL (logged as the one-ulp noise floor), so at bf16 the
+    step holds each of its decode-attention calls against the plain
+    version on the same inputs (TOLS), and the logits are held at
+    LOGITS_TOL in the same step in f32 (weights and cache cast to f32, the
+    kernel's f32 instance), where rounding stays far below it."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -877,6 +933,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
@@ -890,6 +947,7 @@ def main() -> int:
     lib = _build.build()
     log(phase="build", seconds=time.perf_counter() - t0, library=lib.name,
         nvcc_seconds=_build.BUILD_LOG.get("seconds"))
+    flash_instances(_build)
 
     flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)  # 128 MB
     flash = check_flash(dev, flush)
@@ -910,7 +968,7 @@ def main() -> int:
               f"({row['shape']})")
 
     provider, docs, olmo = main_path(dev)
-    compare_decode_plain(provider.engine)
+    compare_decode_rounding(provider.engine, "")
     compare_embed_plain(provider, docs)
     profile_window(provider)
     del provider, docs
@@ -930,6 +988,7 @@ def main() -> int:
         if wide is not None:        # the same kernel at this path's shapes
             entry[RGEMMA] = {k: wide[k] for k in KERNEL_RUN_KEYS}
         kernels.append(entry)
+    log(phase="total", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,29 +17,60 @@
 // MB each, k and v 4.2 MB each, 143 MB (43 us); 8.7 GFLOP (8.8 us).
 //
 // Design.  The TPU kernel carries (m, l, acc) across a sequential grid
-// axis; here a loop over tiles of 64 keys inside each block takes its
-// place, and the kernel reads the model's (B, S, H, hd) layout directly
-// (no transpose or padding copy; ragged edges are masked in the kernel).
-//  * bf16 (the model's dtype): one block of 4 warps per (batch*head, 64 q
-//    rows), 16 rows per warp.  Both products run on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate): S = Q K^T with the warp's
-//    Q fragments held in registers and K from shared memory, then O += P V
-//    with P taken straight from the S accumulators (rounded to bf16, as
-//    FlashAttention-2 does) and V stored transposed in shared memory.  The
-//    products of bf16 values are exact in f32, and the scale is applied to
-//    the f32 scores, so only P's rounding differs from the f32 reference.
-//    Shared rows are padded by 8 bf16 so a warp's fragment loads hit 32
-//    different banks.  The K and V^T tiles sit in dynamic shared memory
-//    (70,656 bytes at hd 256, above the 48 KB a static array may take).
-//    At hd 256 (recurrentgemma-9b) the Q fragments would take 64 registers
-//    beside the 128 of the O accumulators and spill, so there the warp's Q
-//    rows are staged in shared memory too and read one 16-wide k-step at a
-//    time (104,448 bytes a block, 2 blocks per SM).
+// axis; here a loop over KV tiles inside each block takes its place, and
+// the kernel reads the model's (B, S, H, hd) layout directly (no transpose
+// or padding copy; ragged edges are masked in the kernel).
+//  * bf16 (the model's dtype).  A block of 4 warps owns 64 "folded" rows
+//    of one (batch, KV head), 16 a warp: row r is query position r / G of
+//    query head kh * G + r % G, G = H / KH.  So one K/V tile in shared
+//    memory feeds every query head of its KV head, and the causal and
+//    window masks use the row's position.  With G = 16 (recurrentgemma-9b)
+//    a block's 64 rows are 4 positions x 16 heads, which lie side by side
+//    in memory; with G = 1 (olmo-1b) they are 64 positions of one head.
+//    The grid is one block per 64 rows of each (batch, KV head), latest
+//    positions (most tiles) first: 2,048 blocks at both main-path shapes,
+//    3 resident per SM at hd 128 and 2 at hd 256 (5.2 and 7.8 waves on 132
+//    SMs).  64 rows a block is what fills the SMs: 128 rows (two 16-row
+//    m-tiles a warp, FlashAttention-2's layout at hd 128) would double
+//    the accumulators and leave 8 warps an SM instead of 12.
+//    Copies: Q, K and V tiles move by 16-byte cp.async.cg (zero-filled past
+//    Sq and Sk) into shared rows padded by 16 bytes, so the 8 rows an
+//    ldmatrix phase reads start in 8 different 4-bank groups and a warp's
+//    16-byte copies land on consecutive banks: no bank conflicts either
+//    way.  K and V tiles pass in turn through a ring of 4 slots (2 stages
+//    of each): the prologue puts Q and the first two K and V tiles in
+//    flight at once, each its own commit group, so S = Q K^T starts when
+//    Q and K_0 have landed while V_0, K_1 and V_1 are on their way; a slot
+//    is refilled as soon as every warp is done with it, so for long
+//    sequences the ring wraps.  Tiles are 32 keys from hd 128 (64 below):
+//    at hd 256 two blocks then fit an SM's shared memory, at hd 128 the
+//    registers stay under 168 for 3 blocks an SM.  A tile that every row
+//    of the block sees whole is not masked.
+//    Products: mma.sync m16n8k16 (bf16 in, f32 accumulate).  Fragments
+//    come by ldmatrix.x4: Q's (held in registers up to hd 128; at hd 256,
+//    beside the 128 O accumulators, read from shared memory each k-step),
+//    K's, and V's by ldmatrix.x4.trans from V stored row-major as it
+//    arrives (no transpose in shared memory).  P is taken straight from
+//    the S accumulators, rounded to bf16 as FlashAttention-2 does;
+//    products of bf16 values are exact in f32 and the scale (times
+//    log2(e), for ex2) is applied to the f32 scores, so only P's rounding
+//    and ex2's approximation differ from the f32 reference.  The output is
+//    staged in the warp's own Q rows and leaves by 16-byte coalesced stores.
+//    Why mma.sync and not wgmma: the products take 4.4 and 8.8 us at the
+//    bf16 peak against 40 and 43 us for the bytes, so the tensor-core rate
+//    is not what bounds this kernel.  What wgmma would add is asynchrony,
+//    products overlapping the softmax of a latency-bound warp, at the price
+//    of 64-row warpgroup tiles, K and V in its own swizzled layout and the
+//    S accumulator relaid as P: left for a later version.
 //  * f32 (tests and f32 configurations): the products stay in f32 on the
 //    CUDA cores.  One block of 8 warps per (batch*head, 32 q rows); q, K
 //    and V tiles are staged in shared memory (K rows padded by a word);
 //    each warp owns 4 rows and a lane scores 2 keys for all 4, so each
 //    shared K value feeds 4 FMAs.
+//
+// chip_smoke.py phase 1 logs each instance's registers, spills, shared
+// bytes and resident blocks per SM (flash_attention_info).
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
@@ -48,11 +79,61 @@ using namespace repro;
 
 namespace {
 
-constexpr int kBK = 64;  // keys per KV tile
+constexpr int kBK = 64;  // keys per KV tile of the f32 kernel
 
 // ---------------------------------------------------------------- bf16 ---
 constexpr int kMmaWarps = 4;
-constexpr int kMmaBQ = 16 * kMmaWarps;  // q rows per block
+constexpr int kMmaBM = 16 * kMmaWarps;  // folded rows per block, 16 a warp
+
+// Tiles of the bf16 kernel.  Shared memory holds the block's Q rows (later
+// its output rows), then a ring of NS slots of BN keys through which the
+// tiles K_0, V_0, K_1, V_1, ... pass in turn; every row is padded by 8 bf16
+// (16 bytes).
+template <int HD>
+struct MmaTile {
+  static constexpr int BN = HD > 64 ? 32 : 64;    // keys per tile
+  static constexpr int NS = 4;                    // ring slots: 2 K/V stages
+  static constexpr int kMinBlocks = HD > 128 ? 2 : 3;   // per SM
+  static constexpr int RS = HD + 8;               // padded row, bf16
+  static constexpr int CH = HD / 8;               // 16-byte chunks per row
+  static constexpr bool kQRegs = HD <= 128;       // Q fragments in registers
+  static constexpr int kBytes = (kMmaBM + NS * BN) * RS * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1 (L2 fetches whole 128-byte
+// lines); zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -64,88 +145,119 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 2^x on the special-function unit (flush-to-zero; 2^(-1e30) is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Shared-memory layout of the bf16 kernel: padded K rows, padded V^T rows
-// and, above hd 128, the block's padded Q rows.
-template <int HD>
-struct MmaSmem {
-  static constexpr int KS = HD + 8;            // padded K (and Q) row
-  static constexpr int VS = kBK + 8;           // padded V^T row
-  static constexpr bool kQShared = HD > 128;   // Q fragments from smem
-  static constexpr int kBytes =
-      (kBK * KS + HD * VS + (kQShared ? kMmaBQ * KS : 0)) * 2;
-};
-
 // mma.sync fragment coordinates: lane = 4 * g + t.  A (16x16): regs 0..3
 // hold rows (g, g+8, g, g+8) at columns (2t, 2t, 2t+8, 2t+8) and +1.
 // B (16x8): regs 0,1 hold rows (2t, 2t+8) and +1 of column g.  C (16x8):
-// regs 0,1 row g, regs 2,3 row g+8, columns 2t and 2t+1.
+// regs 0,1 row g, regs 2,3 row g+8, columns 2t and 2t+1.  An ldmatrix.x4
+// lane gives the row address of matrix lane / 8; thread lane receives
+// (row lane / 4, columns 2 (lane % 4) and +1) of each matrix, or with
+// .trans (rows 2 (lane % 4) and +1, column lane / 4).
 template <int HD>
-__global__ void __launch_bounds__(kMmaWarps * 32)
+__global__ void __launch_bounds__(kMmaWarps * 32, MmaTile<HD>::kMinBlocks)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                     int KH, int causal, int window, float scale) {
-  using L = MmaSmem<HD>;
+                     int KH, int causal, int window, float scale,
+                     int row_blocks) {
+  using T = MmaTile<HD>;
+  constexpr int BM = kMmaBM, BN = T::BN, NS = T::NS, RS = T::RS, CH = T::CH;
   constexpr int KSTEPS = HD / 16;   // k-steps of Q K^T
   constexpr int OT = HD / 8;        // n-tiles of O
-  constexpr int ST = kBK / 8;       // n-tiles of S
-  constexpr int KS = L::KS;
-  constexpr int VS = L::VS;
+  constexpr int ST = BN / 8;        // n-tiles of S
+  constexpr int NT = kMmaWarps * 32;
+  static_assert((BN * CH) % NT == 0 && (BM * CH) % NT == 0,
+                "tile copies split evenly over the block");
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* vt = ks + kBK * KS;
-  __nv_bfloat16* qsm = vt + HD * VS;  // [kMmaBQ][KS] when kQShared
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* ring = qs + BM * RS;                // [NS][BN][RS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, kh = h / (H / KH);
-  const int q0 = blockIdx.y * kMmaBQ;
-  const int r0 = q0 + warp * 16;    // first q row of this warp
-  const size_t q_stride = (size_t)H * HD;
+  const int G = H / KH;
+  const int bkh = blockIdx.x / row_blocks;
+  const int rb = row_blocks - 1 - blockIdx.x % row_blocks;  // latest first
+  const int b = bkh / KH, kh = bkh % KH;
+  const int rows = Sq * G;          // folded rows of this (batch, KV head)
+  const int r0 = rb * BM;
+  const size_t q_pos_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)KH * HD;
-  const __nv_bfloat16* qb = q + ((size_t)b * Sq * H + h) * HD;
+  const __nv_bfloat16* qb = q + ((size_t)b * Sq * H + (size_t)kh * G) * HD;
+  __nv_bfloat16* ob = o + ((size_t)b * Sq * H + (size_t)kh * G) * HD;
   const __nv_bfloat16* kb = k + ((size_t)b * Sk * KH + kh) * HD;
   const __nv_bfloat16* vb = v + ((size_t)b * Sk * KH + kh) * HD;
-  __nv_bfloat16* ob = o + ((size_t)b * Sq * H + h) * HD;
+  // element offset of folded row r in q and o (no division for one query
+  // head per KV head or for one KV head, the main path's two layouts)
+  auto row_off = [&](int r) -> size_t {
+    if (G == 1) return (size_t)r * q_pos_stride;
+    if (KH == 1) return (size_t)r * HD;
+    return (size_t)(r / G) * q_pos_stride + (size_t)(r % G) * HD;
+  };
 
-  // the warp's Q rows as A fragments (in registers, or staged in shared
-  // memory above hd 128), zero past Sq
-  uint32_t qa[L::kQShared ? 1 : KSTEPS][4];
-  if constexpr (L::kQShared) {
-    __nv_bfloat16* qw = qsm + warp * 16 * KS;
-    for (int i = lane; i < 16 * HD / 2; i += 32) {
-      const int row = i / (HD / 2), d = 2 * (i % (HD / 2));
-      *reinterpret_cast<uint32_t*>(qw + row * KS + d) =
-          r0 + row < Sq ? *reinterpret_cast<const uint32_t*>(
-                              qb + (r0 + row) * q_stride + d)
-                        : 0u;
-    }
-    __syncwarp();
-  } else {
+  // the KV tiles some row of the block can see
+  const int p_first = r0 / G;
+  const int p_last = (min(r0 + BM, rows) - 1) / G;
+  const int k_hi = causal ? min(Sk, p_last + 1) : Sk;
+  int k_lo = window > 0 ? max(0, p_first - window + 1) : 0;
+  k_lo = (k_lo / BN) * BN;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+
+  // ring item i is K_(i/2) (even i) or V_(i/2) (odd i), in slot i % NS
+  auto load_item = [&](int item) {
+    const __nv_bfloat16* src = item & 1 ? vb : kb;
+    __nv_bfloat16* dst = ring + (item % NS) * BN * RS;
+    const int kt = k_lo + (item >> 1) * BN;
 #pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = r0 + g + 8 * (i & 1);
-        const int col = s * 16 + 2 * t + 8 * (i >> 1);
-        qa[s][i] = row < Sq ? *reinterpret_cast<const uint32_t*>(
-                                  qb + row * q_stride + col)
-                            : 0u;
-      }
+    for (int it = 0; it < BN * CH / NT; ++it) {
+      const int i = tid + it * NT, key = i / CH, c = i % CH, kj = kt + key;
+      const bool in = kj < Sk;
+      cp_async16(smem_u32(dst + key * RS + c * 8),
+                 src + (in ? (size_t)kj * kv_stride : 0) + c * 8, in);
     }
+  };
+
+  // prologue: Q, then the first NS ring items, one commit group each
+  // (empty groups past the last item keep the counts below uniform)
+#pragma unroll
+  for (int it = 0; it < BM * CH / NT; ++it) {
+    const int i = tid + it * NT, rr = i / CH, c = i % CH, r = r0 + rr;
+    const bool in = r < rows;
+    cp_async16(smem_u32(qs + rr * RS + c * 8),
+               qb + (in ? row_off(r) : 0) + c * 8, in);
+  }
+  cp_async_commit();
+  const int n_items = 2 * n_tiles;
+#pragma unroll
+  for (int it = 0; it < NS; ++it) {
+    if (it < n_items) load_item(it);
+    cp_async_commit();
   }
 
-  const int q_last = min(q0 + kMmaBQ, Sq) - 1;
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_lo = (k_lo / kBK) * kBK;
+  // this warp's rows wr + [0, 16); query positions of the lane's rows g
+  // and g + 8
+  const int wr = r0 + warp * 16;
+  const int qpos[2] = {(wr + g) / G, (wr + g + 8) / G};
+  // ldmatrix row addresses of this lane (see the fragment note above)
+  const uint32_t q_addr =
+      smem_u32(qs + (warp * 16 + (lane & 15)) * RS + (lane >> 4) * 8);
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = (lane >> 3) & 1;
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = lane >> 4;
 
+  // scores are kept scaled by log2(e), so exp(x) is ex2 of them
+  const float scale_log2 = scale * 1.4426950408889634f;
+  uint32_t qa[T::kQRegs ? KSTEPS : 1][4];
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   float acc[OT][4];
 #pragma unroll
@@ -153,71 +265,62 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
-  for (int kt = k_lo; kt < k_hi; kt += kBK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int i = tid; i < kBK * HD / 2; i += kMmaWarps * 32) {
-      const int key = i / (HD / 2), d = 2 * (i % (HD / 2)), kj = kt + key;
-      uint32_t kw = 0u, vw = 0u;
-      if (kj < Sk) {
-        kw = *reinterpret_cast<const uint32_t*>(kb + kj * kv_stride + d);
-        vw = *reinterpret_cast<const uint32_t*>(vb + kj * kv_stride + d);
-      }
-      *reinterpret_cast<uint32_t*>(ks + key * KS + d) = kw;
-      const __nv_bfloat162 v2 = *reinterpret_cast<__nv_bfloat162*>(&vw);
-      vt[d * VS + key] = v2.x;
-      vt[(d + 1) * VS + key] = v2.y;
-    }
+  for (int j = 0; j < n_tiles; ++j) {
+    const __nv_bfloat16* kst = ring + (2 * j % NS) * BN * RS;
+    const __nv_bfloat16* vst = ring + ((2 * j + 1) % NS) * BN * RS;
+    const int kt = k_lo + j * BN;
+    // does every row of the block see every key of the tile?
+    const bool whole = kt + BN <= Sk && (!causal || kt + BN - 1 <= p_first) &&
+                       (window <= 0 || p_last - kt < window);
+    // committed after K_j: the NS - 1 items up to 2j + NS - 1
+    cp_async_wait<NS - 1>();
     __syncthreads();
-
-    // S = Q K^T for 64 keys
-    float s[ST][4];
-    if constexpr (L::kQShared) {
+    if constexpr (T::kQRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int j = 0; j < ST; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-      const __nv_bfloat16* qw = qsm + (warp * 16 + g) * KS + 2 * t;
-#pragma unroll
-      for (int st = 0; st < KSTEPS; ++st) {
-        const uint32_t a[4] = {
-            *reinterpret_cast<const uint32_t*>(qw + st * 16),
-            *reinterpret_cast<const uint32_t*>(qw + 8 * KS + st * 16),
-            *reinterpret_cast<const uint32_t*>(qw + st * 16 + 8),
-            *reinterpret_cast<const uint32_t*>(qw + 8 * KS + st * 16 + 8)};
-#pragma unroll
-        for (int j = 0; j < ST; ++j) {
-          const __nv_bfloat16* kp = ks + (j * 8 + g) * KS + st * 16 + 2 * t;
-          mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kp),
-                   *reinterpret_cast<const uint32_t*>(kp + 8));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < ST; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-        for (int st = 0; st < KSTEPS; ++st) {
-          const __nv_bfloat16* kp = ks + (j * 8 + g) * KS + st * 16 + 2 * t;
-          mma_bf16(s[j], qa[st], *reinterpret_cast<const uint32_t*>(kp),
-                   *reinterpret_cast<const uint32_t*>(kp + 8));
-        }
+        for (int st = 0; st < KSTEPS; ++st) ldsm_x4(qa[st], q_addr + st * 32);
       }
     }
 
-    // scale, mask, online softmax (rows g and g + 8 of the warp)
+    // S = Q K^T for BN keys
+    float s[ST][4];
+#pragma unroll
+    for (int jj = 0; jj < ST; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[jj][i] = 0.f;
+    const uint32_t k_addr = smem_u32(kst + k_row * RS + k_col * 8);
+#pragma unroll
+    for (int st = 0; st < KSTEPS; ++st) {
+      uint32_t af[4];
+      const uint32_t* a = af;
+      if constexpr (T::kQRegs) {
+        a = qa[st];
+      } else {
+        ldsm_x4(af, q_addr + st * 32);
+      }
+#pragma unroll
+      for (int jj = 0; jj < ST; jj += 2) {
+        uint32_t bk[4];
+        ldsm_x4(bk, k_addr + (jj * 8 * RS + st * 16) * 2);
+        mma_bf16(s[jj], a, bk[0], bk[1]);
+        mma_bf16(s[jj + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale, mask (unless every row sees the whole tile), online softmax
+    // (rows g and g + 8 of the warp)
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
+    for (int jj = 0; jj < ST; ++jj) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int qi = r0 + g + 8 * (i >> 1);
-        const int kj = kt + j * 8 + 2 * t + (i & 1);
-        bool ok = kj < Sk;
-        if (causal) ok = ok && kj <= qi;
-        if (window > 0) ok = ok && qi - kj < window;
-        s[j][i] = ok ? s[j][i] * scale : kNeg;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+        const int qi = qpos[i >> 1];
+        const int kj = kt + jj * 8 + 2 * t + (i & 1);
+        bool ok = whole || kj < Sk;
+        if (causal) ok = ok && (whole || kj <= qi);
+        if (window > 0) ok = ok && (whole || qi - kj < window);
+        s[jj][i] = ok ? s[jj][i] * scale_log2 : kNeg;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
       }
     }
     float corr[2], sum[2] = {0.f, 0.f};
@@ -226,15 +329,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
+      corr[r] = ex2(m[r] - m_new);
       m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
+    for (int jj = 0; jj < ST; ++jj) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[j][i] = expf(s[j][i] - m[i >> 1]);
-        sum[i >> 1] += s[j][i];
+        s[jj][i] = ex2(s[jj][i] - m[i >> 1]);
+        sum[i >> 1] += s[jj][i];
       }
     }
 #pragma unroll
@@ -251,31 +354,57 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       acc[n][3] *= corr[1];
     }
 
+    // committed after V_j: the NS - 2 items up to 2j + NS - 1.  Past this
+    // barrier every warp is done with K_j, whose slot takes item 2j + NS.
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    if (2 * j + NS < n_items) load_item(2 * j + NS);
+    cp_async_commit();
+
     // O += P V, P from the S accumulators (16 keys per k-step)
+    const uint32_t v_addr = smem_u32(vst + v_row * RS + v_col * 8);
 #pragma unroll
-    for (int st = 0; st < kBK / 16; ++st) {
+    for (int st = 0; st < BN / 16; ++st) {
       const uint32_t pa[4] = {pack_bf16(s[2 * st][0], s[2 * st][1]),
                               pack_bf16(s[2 * st][2], s[2 * st][3]),
                               pack_bf16(s[2 * st + 1][0], s[2 * st + 1][1]),
                               pack_bf16(s[2 * st + 1][2], s[2 * st + 1][3])};
 #pragma unroll
-      for (int n = 0; n < OT; ++n) {
-        const __nv_bfloat16* vp = vt + (n * 8 + g) * VS + st * 16 + 2 * t;
-        mma_bf16(acc[n], pa, *reinterpret_cast<const uint32_t*>(vp),
-                 *reinterpret_cast<const uint32_t*>(vp + 8));
+      for (int n = 0; n < OT; n += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, v_addr + (st * 16 * RS + n * 8) * 2);
+        mma_bf16(acc[n], pa, bv[0], bv[1]);
+        mma_bf16(acc[n + 1], pa, bv[2], bv[3]);
       }
     }
+    if (2 * j + 1 + NS < n_items) {   // the same in every thread
+      __syncthreads();                 // every warp is done with V_j
+      load_item(2 * j + 1 + NS);
+    }
+    cp_async_commit();
   }
 
+  // epilogue: no copy may still land in Q's rows, which now take the
+  // warp's output; then 16-byte stores of whole rows
+  cp_async_wait<0>();
+  __syncthreads();
+  __nv_bfloat16* ow = qs + warp * 16 * RS;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = r0 + g + 8 * r;
-    if (qi >= Sq) continue;
-    const float lr = fmaxf(l[r], 1e-37f);
+    const float inv = 1.f / fmaxf(l[r], 1e-37f);
 #pragma unroll
     for (int n = 0; n < OT; ++n) {
-      *reinterpret_cast<uint32_t*>(ob + qi * q_stride + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * r] / lr, acc[n][2 * r + 1] / lr);
+      *reinterpret_cast<uint32_t*>(ow + (g + 8 * r) * RS + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < CH / 2; ++it) {        // 16 rows x CH chunks
+    const int i = lane + it * 32, rr = i / CH, c = i % CH, r = wr + rr;
+    if (r < rows) {
+      *reinterpret_cast<uint4*>(ob + row_off(r) + c * 8) =
+          *reinterpret_cast<const uint4*>(ow + rr * RS + c * 8);
     }
   }
 }
@@ -422,17 +551,22 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, int B, int Sq, int Sk, int H, int KH, int causal,
                    int window, float scale, cudaStream_t stream) {
   if (dtype == kBF16) {
-    constexpr int smem = MmaSmem<HD>::kBytes;
+    constexpr int smem = MmaTile<HD>::kBytes;
     if (smem > 48 * 1024) {
       const cudaError_t err = set_smem(flash_fwd_mma_kernel<HD>, smem);
       if (err != cudaSuccess) return err;
     }
-    const dim3 grid(B * H, (Sq + kMmaBQ - 1) / kMmaBQ);
-    flash_fwd_mma_kernel<HD><<<grid, kMmaWarps * 32, smem, stream>>>(
+    // one block per 64 folded rows of each (batch, KV head)
+    const long long rows = (long long)Sq * (H / KH);
+    const long long row_blocks = (rows + kMmaBM - 1) / kMmaBM;
+    const long long blocks = row_blocks * B * KH;
+    if (rows > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+    flash_fwd_mma_kernel<HD><<<(unsigned)blocks, kMmaWarps * 32, smem,
+                               stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        Sq, Sk, H, KH, causal, window, scale);
+        Sq, Sk, H, KH, causal, window, scale, (int)row_blocks);
     return cudaGetLastError();
   }
   if (dtype != kF32) return cudaErrorInvalidValue;
@@ -447,7 +581,50 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// out: registers a thread, local bytes a thread (spills and stack),
+// dynamic shared bytes and resident blocks per SM of one instance, as the
+// launcher above starts it
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, int smem, int* out) {
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return err;
+}
+
+template <int HD>
+cudaError_t info(int dtype, int* out) {
+  if (dtype == kBF16)
+    return kernel_info(flash_fwd_mma_kernel<HD>, kMmaWarps * 32,
+                       MmaTile<HD>::kBytes, out);
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  return kernel_info(flash_fwd_f32_kernel<HD>, kWarps * 32, smem_bytes<HD>(),
+                     out);
+}
+
 }  // namespace
+
+// What the instance for (hd, dtype) takes on this card: out[4] as
+// kernel_info gives it.
+REPRO_EXPORT int flash_attention_info(int hd, int dtype, int* out) {
+  switch (hd) {
+    case 16: return info<16>(dtype, out);
+    case 32: return info<32>(dtype, out);
+    case 64: return info<64>(dtype, out);
+    case 128: return info<128>(dtype, out);
+    case 256: return info<256>(dtype, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // q, o: (B, Sq, H, hd); k, v: (B, Sk, KH, hd); contiguous, one dtype.
 REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, into ``build/repro_torch_kernels/`` at the root of the checkout.  The
-library's file name holds a digest of the sources and flags, so an edited
-source is rebuilt and an unchanged tree loads what it built before.
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, at first use, into
+``build/repro_torch_kernels/`` at the root of the checkout.  The library's
+file name holds a digest of the sources and flags, so an edited source is
+rebuilt and an unchanged tree loads what it built before.  ``BUILD_LOG``
+keeps what ``nvcc -Xptxas -v`` reported for each source (registers,
+spills) when this process built the library.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a host may have neither ``nvcc`` nor a GPU.
@@ -26,13 +29,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
-# {"seconds": compile wall time, "log": nvcc output} of a build made by
-# this process; empty when the library was already built
+# {"seconds": compile and link wall time, "log": {source: nvcc output}} of
+# a build made by this process; empty when the library was already built
 BUILD_LOG: dict = {}
 
 
@@ -60,18 +64,35 @@ def build() -> Path:
     path = so_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = BUILD_DIR / f"{path.name}.{os.getpid()}.objs"
+    objs.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{path.name}.{os.getpid()}.tmp"
     t0 = time.monotonic()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-         *map(str, sorted(CSRC.glob("*.cu")))],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    BUILD_LOG.update(seconds=time.monotonic() - t0, log=proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)   # atomic publish
+    try:
+        procs = {src: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+             str(objs / f"{src.stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sorted(CSRC.glob("*.cu"))}
+        logs = {src.name: proc.communicate()[0]
+                for src, proc in procs.items()}
+        failed = [src.name for src, proc in procs.items() if proc.returncode]
+        if failed:
+            raise RuntimeError("kernel build failed (nvcc):\n" + "\n".join(
+                f"{name}:\n{logs[name]}" for name in failed))
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *(str(objs / f"{src.stem}.o") for src in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        BUILD_LOG.update(seconds=time.monotonic() - t0, log=logs)
+        if link.returncode != 0:
+            raise RuntimeError(f"kernel link failed (nvcc exit "
+                               f"{link.returncode}):\n{link.stdout}")
+        os.replace(tmp, path)   # atomic publish
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+        tmp.unlink(missing_ok=True)
     return path
 
 

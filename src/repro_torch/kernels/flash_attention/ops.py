@@ -19,7 +19,9 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _I, _I, _F, _I, _P)}
+                                       _I, _I, _I, _F, _I, _P),
+               "flash_attention_info": (_I, _I, ctypes.POINTER(_I))}
+INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -56,3 +58,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def instance_info(hd: int, dtype=torch.bfloat16) -> dict:
+    """What the kernel instance for head dim ``hd`` and ``dtype`` takes on
+    the current card, from the CUDA runtime: registers and local bytes
+    (spills and stack) a thread, dynamic shared bytes, and resident blocks
+    per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if hd not in HEAD_DIMS or dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: no instance for hd {hd}, {dtype}")
+    lib = _build.load(_SIGNATURES)
+    out = (_I * len(INFO_KEYS))()
+    rc = lib.flash_attention_info(hd, _DTYPES[dtype], out)
+    _build.check_launch(lib, rc, "flash_attention_info")
+    return dict(zip(INFO_KEYS, out))

@@ -6,7 +6,8 @@ Counterpart of ``repro/kernels/topk_sim/ops.py``.  Phase 1,
 version in ``ref.py`` for a CPU tensor; ``block_max_scores.launches``
 counts kernel launches.  Phase 2 (top-k blocks, gather, exact rescore,
 duplicate mask, top-k) is plain PyTorch, as the JAX package leaves it to
-XLA.
+XLA.  Results come in the canonical (score desc, id asc) order of the
+reference's retrieval operators (``repro/engine/retrieval_ops.py``).
 """
 
 from __future__ import annotations
@@ -77,21 +78,25 @@ def topk_sim(corpus, queries, k: int, *, block_n: int = 64):
 
     bmax = block_max_scores(cn, qn, block_n=block_n)      # (Q, n_blocks)
     kb = min(k, bmax.shape[1])
-    top_blocks = torch.topk(bmax, kb, dim=1).indices        # (Q, kb)
+    # the kb best blocks, ties to the lower block: a canonical top-k doc
+    # outside them would trail a better-or-equal doc of each of kb >= k
+    # chosen blocks in (score desc, id asc) order
+    top_blocks = torch.sort(bmax, dim=1, descending=True,
+                            stable=True).indices[:, :kb]     # (Q, kb)
 
     # candidate rows of the top blocks: (Q, kb * block_n), clipped to N-1
     row_idx = (top_blocks[:, :, None] * block_n
                + torch.arange(block_n, device=corpus.device)
                ).reshape(Q, kb * block_n).clamp_max(N - 1)
-    cand = cn[row_idx]                                      # (Q, kb*bn, D)
-    s = torch.einsum("qd,qnd->qn", qn.to(F32), cand.to(F32))
-    # a clipped row gathered twice scores twice: keep its first occurrence
-    sorted_rows, order = torch.sort(row_idx, dim=1, stable=True)
+    # candidates in id order; a clipped row gathered twice is kept once
+    rows, _ = torch.sort(row_idx, dim=1, stable=True)
     first = torch.cat(
         [torch.ones((Q, 1), dtype=torch.bool, device=corpus.device),
-         sorted_rows[:, 1:] != sorted_rows[:, :-1]], dim=1)
-    keep = torch.gather(first, 1, torch.argsort(order, dim=1))
-    s = s.masked_fill(~keep, float("-inf"))
-    top_s, at = torch.topk(s, k, dim=1)
-    top_i = torch.gather(row_idx, 1, at)
-    return top_s, top_i.to(torch.int32)
+         rows[:, 1:] != rows[:, :-1]], dim=1)
+    cand = cn[rows]                                         # (Q, kb*bn, D)
+    s = torch.einsum("qd,qnd->qn", qn.to(F32), cand.to(F32))
+    s = s.masked_fill(~first, float("-inf"))
+    # (score desc, id asc): a stable sort keeps tied candidates in id order
+    top_s, at = torch.sort(s, dim=1, descending=True, stable=True)
+    top_i = torch.gather(rows, 1, at[:, :k])
+    return top_s[:, :k], top_i.to(torch.int32)

@@ -16,10 +16,12 @@ def _normalise(x):
 
 
 def topk_sim_ref(corpus, queries, k: int):
-    """corpus: (N, D); queries: (Q, D) -> (scores (Q,k), idx (Q,k))."""
+    """corpus: (N, D); queries: (Q, D) -> (scores (Q,k), idx (Q,k)) in
+    (score desc, id asc) order."""
     s = torch.einsum("qd,nd->qn", _normalise(queries).to(F32),
                      _normalise(corpus).to(F32))
-    return torch.topk(s, k, dim=1)
+    top_s, idx = torch.sort(s, dim=1, descending=True, stable=True)
+    return top_s[:, :k], idx[:, :k]
 
 
 def block_max_scores_ref(corpus, queries, *, block_n: int = 64):

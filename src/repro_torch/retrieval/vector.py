@@ -24,9 +24,10 @@ F32 = torch.float32
 
 def cosine_topk(corpus, queries, k: int, block: int = 4096):
     """corpus: (N, D) unit-normalised; queries: (Q, D).  Returns
-    (scores (Q,k), indices (Q,k) int32) by cosine similarity, blocked over
-    N so the full (N, Q) score matrix is never materialised.  ``k`` is
-    capped at N; an empty corpus returns empty (Q, 0) results."""
+    (scores (Q,k), indices (Q,k) int32) by cosine similarity in (score
+    desc, id asc) order, blocked over N so the full (N, Q) score matrix is
+    never materialised.  ``k`` is capped at N; an empty corpus returns
+    empty (Q, 0) results."""
     N, D = corpus.shape
     Q = queries.shape[0]
     k = min(k, N)
@@ -44,10 +45,12 @@ def cosine_topk(corpus, queries, k: int, block: int = 4096):
         s = (qn.to(F32) @ cb.to(F32).T)
         idx = torch.arange(start, start + cb.shape[0], dtype=torch.int32,
                            device=dev)
+        # best holds lower ids than this block, in (score desc, id asc)
+        # order: a stable sort keeps that order among ties
         cat_s = torch.cat([best_s, s], dim=1)
         cat_i = torch.cat([best_i, idx.expand(Q, -1)], dim=1)
-        best_s, at = torch.topk(cat_s, k, dim=1)
-        best_i = torch.gather(cat_i, 1, at)
+        cat_s, at = torch.sort(cat_s, dim=1, descending=True, stable=True)
+        best_s, best_i = cat_s[:, :k], torch.gather(cat_i, 1, at[:, :k])
     return best_s, best_i
 
 

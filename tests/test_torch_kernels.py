@@ -24,6 +24,7 @@ from repro.kernels.decode_attention.ops import decode_attention as jax_decode
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.topk_sim.kernel import block_max_scores as jax_block_max
 from repro.kernels.topk_sim.ops import topk_sim as jax_topk_sim
+from repro.retrieval.vector import cosine_topk as jax_cosine_topk
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -121,6 +122,24 @@ def test_topk_sim_matches_jax_kernel(N, D, Q, k, bn):
     np.testing.assert_allclose(s_r.numpy(), np.asarray(s_j), atol=1e-5,
                                rtol=1e-5)
     np.testing.assert_array_equal(i_r.numpy(), np.asarray(i_j))
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_topk_sim_ties_in_canonical_order(k):
+    """A corpus of 4,000 rows drawn from 50 distinct vectors: the block
+    choice and the final cut keep tied docs in id order, so the ids are
+    the JAX jnp scan's (score desc, id asc) exactly."""
+    rng = np.random.default_rng(0)
+    base = rng.standard_normal((50, 64)).astype(np.float32)
+    c = base[rng.integers(0, 50, 4000)]
+    q = rng.standard_normal((8, 64)).astype(np.float32)
+    cn = c / np.linalg.norm(c, axis=1, keepdims=True)
+    s_j, i_j = jax_cosine_topk(jnp.asarray(cn), jnp.asarray(q), k)
+    for fn in (topk_ops.topk_sim, topk_sim_ref):
+        s, i = fn(torch.from_numpy(c), torch.from_numpy(q), k)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_j))
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-5,
+                                   rtol=1e-5)
 
 
 @pytest.mark.parametrize("N,D,Q,bn", [(1000, 32, 5, 64), (513, 16, 3, 128),

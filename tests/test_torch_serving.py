@@ -227,6 +227,32 @@ def test_vector_index_topk_matches_jax(N, D, Q, k):
                                rtol=1e-5)
 
 
+def _duplicated_corpus(seed=0, n=4000, distinct=50, d=64, n_queries=8):
+    """Rows drawn from a few distinct vectors: ranks tie in whole groups."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((distinct, d)).astype(np.float32)
+    vecs = base[rng.integers(0, distinct, n)]
+    return vecs, rng.standard_normal((n_queries, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_vector_index_topk_ties_in_canonical_order(k):
+    """Tied scores rank by doc id ascending, as the JAX jnp scan ranks
+    them (the (score desc, id asc) order of the reference's retrieval
+    operators)."""
+    vecs, q = _duplicated_corpus()
+    c = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+    s_j, i_j = jax_cosine_topk(jnp.asarray(c), jnp.asarray(q), k)
+    i_j, s_j = np.asarray(i_j), np.asarray(s_j)
+    s, i = VectorIndex(vecs, device="cpu").topk(q, k)
+    np.testing.assert_array_equal(i, i_j)
+    np.testing.assert_allclose(s, s_j, atol=1e-5, rtol=1e-5)
+    s_c, i_c = cosine_topk(torch.from_numpy(c), torch.from_numpy(q), k,
+                           block=16)
+    np.testing.assert_array_equal(i_c.numpy(), i_j)
+    np.testing.assert_allclose(s_c.numpy(), s_j, atol=1e-5, rtol=1e-5)
+
+
 def test_vector_index_empty_inputs():
     idx = VectorIndex(np.zeros((0,), np.float32), device="cpu")
     s, i = idx.topk(np.ones((2, 4), np.float32), 3)
