@@ -5,12 +5,14 @@
 Phases (any failed check exits non-zero; nothing is caught and hidden):
   1. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` (one nvcc per source, all at once, linked into
-     one shared library); each flash-attention instance's registers,
-     spills (``-Xptxas -v``), shared bytes and resident blocks per SM;
+     one shared library); each flash- and decode-attention instance's
+     registers, local bytes, shared bytes and resident blocks per SM (a
+     bf16 instance must keep no local memory and be resident);
   2. each kernel against its plain PyTorch version at the main path's
      shapes (olmo-1b: flash attention on a 64-text embed batch of 128
-     tokens, decode attention over 4 slots x 2048 positions, the block-max
-     scan over 100,000 x 2048 f32 passages; falcon-mamba-7b: the selective
+     tokens, decode attention over 4 slots x 2048 positions (without and
+     with a window of 512, and at short positions), the block-max scan
+     over 100,000 x 2048 f32 passages; falcon-mamba-7b: the selective
      scan of a 64-text embed batch of 128 tokens, di=8192, N=16;
      recurrentgemma-9b: flash attention of 16 query heads over one KV head
      of 256 on its embed batch, decode attention at that width over 4
@@ -18,10 +20,12 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      of its embed batch, di=4096, f32), with CUDA-event times of the
      kernel, the plain version and, where one exists, one PyTorch library
      call computing the same function; bounds from the card's peak rates.
-     Flash attention and its SDPA yardstick are timed in interleaved pairs
-     (median and min, and their ratio).  Top-100 ids must equal the plain
-     version's exactly, on a random corpus and on one whose rows repeat
-     1,000 distinct vectors (ties rank by id);
+     Flash and decode attention and their SDPA yardsticks are timed in
+     interleaved pairs (median and min, and their ratio); decode attention
+     and its yardstick also by their device time (``torch.profiler``: the
+     kernels one call launches, summed, median over calls).  Top-100 ids
+     must equal the plain version's exactly, on a random corpus and on one
+     whose rows repeat 1,000 distinct vectors (ties rank by id);
   3. the main path at full olmo-1b width through the user's entry points
      (LocalTorchProvider.embed, VectorIndex.topk, LocalTorchProvider.complete,
      ServingEngine.submit/run_until_idle), with every kernel's launch count
@@ -169,14 +173,16 @@ def ids_match(ids, ref_ids) -> bool:
 
 
 def ptxas_spills(text: str) -> dict:
-    """{(kernel name, hd): (spill store bytes, spill load bytes)} of the
-    flash-attention instances in ``nvcc -Xptxas -v`` output."""
+    """{(kernel name, template ints): (spill store bytes, spill load bytes)}
+    of the attention instances in ``nvcc -Xptxas -v`` output."""
     spills, current = {}, None
     for line in text.splitlines():
-        named = re.search(
-            r"entry function '.*(flash_fwd_\w+?_kernel)ILi(\d+)E", line)
+        named = re.search(r"entry function '.*((?:flash_fwd|decode)_\w+?"
+                          r"_kernel)I((?:Li\d+E)+)E", line)
         if named:
-            current = (named.group(1), int(named.group(2)))
+            current = (named.group(1),
+                       tuple(int(x) for x in re.findall(r"Li(\d+)E",
+                                                        named.group(2))))
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
         if found and current:
@@ -184,31 +190,46 @@ def ptxas_spills(text: str) -> dict:
     return spills
 
 
-def flash_instances(_build):
-    """Phase 1: each flash-attention instance's registers, local bytes,
-    shared bytes and resident blocks per SM (CUDA runtime), and the spills
-    ``nvcc -Xptxas -v`` reported for it when this process built the
-    library (None when an earlier process did; logged only).  A bf16
-    instance, the one the models run, must keep no local memory (no
-    spills) and be resident."""
-    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
-                                                         instance_info)
-    spills = ptxas_spills(
-        _build.BUILD_LOG.get("log", {}).get("flash_attention.cu", ""))
-    rows = []
-    for name, dt in (("flash_fwd_mma_kernel", torch.bfloat16),
-                     ("flash_fwd_f32_kernel", torch.float32)):
-        for hd in HEAD_DIMS:
-            st, ld = spills.get((name, hd), (None, None))
-            rows.append(dict(kernel=name, hd=hd, **instance_info(hd, dt),
-                             spill_store_bytes=st, spill_load_bytes=ld))
-    log(phase="flash_instances", instances=rows)
-    for r in rows:
-        if r["kernel"] == "flash_fwd_mma_kernel":
-            check(r["local_bytes"] == 0,
-                  f"flash attention spills at hd {r['hd']}: {r}")
-            check(r["blocks_per_sm"] > 0, f"flash attention at hd {r['hd']} "
-                  f"cannot be resident: {r}")
+# per attention kernel: its instances as (name, dtype, template ints after
+# hd); the first is the bf16 instance the models run
+INSTANCES = {
+    "flash_attention": (("flash_fwd_mma_kernel", torch.bfloat16, ()),
+                        ("flash_fwd_f32_kernel", torch.float32, ())),
+    "decode_attention": (("decode_mma_kernel", torch.bfloat16, ()),
+                         ("decode_partial_kernel", torch.float32, (8,)))}
+
+
+def attention_instances(_build):
+    """Phase 1: each flash- and decode-attention instance's registers,
+    local bytes, shared bytes and resident blocks per SM (CUDA runtime),
+    and the spills ``nvcc -Xptxas -v`` reported for it when this process
+    built the library (None when an earlier process did; logged only).  A
+    bf16 instance, the one the models run, must keep no local memory (no
+    spills) and be resident.  One bf16 decode instance per head dim serves
+    every G in ``GROUPS`` (the G heads are the rows of one MMA tile); it is
+    given with its largest ring."""
+    import importlib
+    logs = _build.BUILD_LOG.get("log", {})
+    for kernel, instances in INSTANCES.items():
+        ops = importlib.import_module(f"repro_torch.kernels.{kernel}.ops")
+        spills = ptxas_spills(logs.get(f"{kernel}.cu", ""))
+        rows = []
+        for name, dt, rest in instances:
+            for hd in ops.HEAD_DIMS:
+                st, ld = spills.get((name, (hd, *rest)), (None, None))
+                row = dict(kernel=name, hd=hd, **ops.instance_info(hd, dt),
+                           spill_store_bytes=st, spill_load_bytes=ld)
+                if kernel == "decode_attention":
+                    row["groups"] = (list(ops.GROUPS) if dt == torch.bfloat16
+                                     else list(rest))
+                rows.append(row)
+        log(phase=f"{kernel.split('_')[0]}_instances", instances=rows)
+        for r in rows:
+            if r["kernel"] == instances[0][0]:
+                check(r["local_bytes"] == 0,
+                      f"{kernel} spills at hd {r['hd']}: {r}")
+                check(r["blocks_per_sm"] > 0, f"{kernel} at hd {r['hd']} "
+                      f"cannot be resident: {r}")
 
 
 # --------------------------------------------------------------------------
@@ -266,12 +287,64 @@ def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
     return row
 
 
+def _device_kernels(run) -> list:
+    """(start us, duration us, name) of each CUDA kernel ``run()``
+    launched, from ``torch.profiler``, in time order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def device_times_ms(fn, flush, calls=20):
+    """Calls of ``fn`` by their device time from ``torch.profiler``: the
+    durations of the CUDA kernels a call launched, summed.  The L2 flush
+    before each call is one kernel, named from a trace of flushes alone;
+    the timed trace is cut at each flush.  The profiler may miss the first
+    kernels of a trace, so what precedes the first flush is dropped and
+    ``calls - 2`` whole calls suffice.  Returns (ms of each call, kernels
+    per call, kernel names)."""
+    def flushes():
+        for _ in range(3):
+            flush.zero_()
+    names = []
+    for _ in range(3):
+        names = [name for _, _, name in _device_kernels(flushes)]
+        if names:
+            break
+    check(bool(names), "the profiler recorded no kernel of the L2 flush")
+    flush_name = max(set(names), key=names.count)
+    fn()
+
+    def timed():
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+    per_call = []
+    for _, us, name in _device_kernels(timed):
+        if name == flush_name:
+            per_call.append([])
+        elif per_call:             # kernels before the first flush: dropped
+            per_call[-1].append((us, name))
+    per_call = [ks for ks in per_call if ks]
+    check(calls - 2 <= len(per_call) <= calls, f"the profiler's trace holds "
+          f"{len(per_call)} of {calls} calls (cut at {flush_name[:60]})")
+    return ([sum(us for us, _ in ks) / 1e3 for ks in per_call],
+            [len(ks) for ks in per_call],
+            sorted({name for ks in per_call for _, name in ks}))
+
+
 def check_decode(dev, flush, S=2048, KH=16, hd=128,
                  positions=(1900, 1024, 300, 37), windows=(0, 512),
                  seed=SEED + 1):
     """Decode attention over 4 slots, 16 query heads: olmo-1b's (16 KV
     heads of 128, a 2048-slot cache) by default, recurrentgemma-9b's with
-    ``KH=1, hd=256`` and positions past its window of 2048."""
+    ``KH=1, hd=256`` and positions past its window of 2048.  The kernel and
+    masked SDPA are timed in 50 interleaved pairs (CUDA events around each
+    call) and by their device time (the kernels one call launches)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     B, H, dt = 4, 16, torch.bfloat16
@@ -281,6 +354,9 @@ def check_decode(dev, flush, S=2048, KH=16, hd=128,
               for _ in range(2))
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     gqa = {} if KH == H else {"enable_gqa": True}
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for window in windows:
         def kern():
@@ -296,12 +372,16 @@ def check_decode(dev, flush, S=2048, KH=16, hd=128,
         valid = k_pos[None, :] <= pos[:, None].long()
         if window:
             valid &= pos[:, None].long() - k_pos[None, :] < window
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
         mask = valid[:, None, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa),
-                      flush)
+
+        def lib():
+            return sdpa(qt, kt, vt, attn_mask=mask, **gqa)
+        k_ms, lib_ms = time_pairs_ms(kern, lib, flush)
+        med, lib_med = statistics.median(k_ms), statistics.median(lib_ms)
+        dev_ms, dev_launches, dev_names = device_times_ms(kern, flush)
+        lib_dev_ms, _, _ = device_times_ms(lib, flush)
+        dev_med = statistics.median(dev_ms)
+        lib_dev_med = statistics.median(lib_dev_ms)
         n_valid = int(valid.sum())              # what this data must read
         nbytes = (2 * n_valid * KH * hd + 2 * q.numel()) * q.element_size() \
             + pos.numel() * 4
@@ -314,15 +394,36 @@ def check_decode(dev, flush, S=2048, KH=16, hd=128,
             shape=f"q ({B}, 1, {H}, {hd}), cache ({B}, {S}, {KH}, {hd}) "
                   f"bf16, pos {pos.tolist()}, window {window}",
             max_abs_err=err, atol=TOLS[dt], rtol=TOLS[dt], ok=ok,
-            ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush, iters=5),
-            library_ms=lib,
+            ms=med, ms_min=min(k_ms), plain_ms=time_ms(plain, flush, iters=5),
+            library_ms=lib_med, library_ms_min=min(lib_ms),
             library="F.scaled_dot_product_attention(mask"
             + (", enable_gqa)" if gqa else ")"),
-            bound_ms=b_ms, bound_by=b_by,
+            timed_pairs=len(k_ms), ratio_to_library=med / lib_med,
+            ratio_to_library_min=min(k_ms) / min(lib_ms),
+            device_ms=dev_med, library_device_ms=lib_dev_med,
+            device_ratio_to_library=dev_med / lib_dev_med,
+            device_timed_calls=len(dev_ms),
+            kernel_launches_per_call=statistics.median(dev_launches),
+            device_kernels=dev_names,
+            bound_ms=b_ms, bound_by=b_by, n_valid=n_valid,
             full_cache_bound_ms=(2 * kc.numel() * 2) / HBM_BYTES_PER_S * 1e3)
         log(**row)
         rows.append(row)
     return rows
+
+
+def check_decode_rows(dev, flush):
+    """Phase 2's decode-attention rows: olmo-1b's shape without and with a
+    window of 512 and at short positions (early decode of short prompts),
+    then recurrentgemma-9b's (16 query heads over one KV head of 256, 4096
+    slots, positions past its window of 2048)."""
+    olmo = check_decode(dev, flush)
+    short = check_decode(dev, flush, positions=(107, 87, 67, 47),
+                         windows=(0,))
+    rg = check_decode(dev, flush, S=4096, KH=1, hd=256,
+                      positions=(4000, 2500, 2100, 37), windows=(2048,),
+                      seed=SEED + 8)
+    return olmo + short, rg
 
 
 def check_topk(dev, flush):
@@ -687,7 +788,8 @@ def compare_embed_plain(provider, docs, prefix=""):
 # --------------------------------------------------------------------------
 # a kernel falls in the first group one of whose markers its name holds
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_",)),
-                 ("decode_attention", ("decode_partial_kernel",
+                 ("decode_attention", ("decode_mma_kernel",
+                                       "decode_partial_kernel",
                                        "decode_combine_kernel")),
                  ("topk_sim.block_max_scores", ("block_max_kernel",)),
                  ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma",
@@ -734,13 +836,20 @@ def profile_window(provider):
         groups[name] += us / 1e3
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     steps = engine.steps - steps0
+    decode_marks = dict(KERNEL_GROUPS)["decode_attention"]
+    decode = {mark: sum(n for _, n, key in rows if mark in key)
+              for mark in decode_marks}
     log(phase="profile", engine_steps=steps, wall_s=wall,
         trace_s=time.perf_counter() - t_trace,
         host_ms_per_step=wall * 1e3 / steps, device_busy_ms=busy_ms,
         device_idle_share=1 - busy_ms / (wall * 1e3),
-        device_ms_by_group=groups,
+        device_ms_by_group=groups, decode_kernel_calls=decode,
         top_kernels=[{"kernel": key[:80], "calls": n, "ms": us / 1e3}
                      for us, n, key in sorted(rows, reverse=True)[:12]])
+    # bf16 decode attention is one launch a call: no merge kernel
+    check(decode["decode_mma_kernel"] > 0
+          and decode["decode_combine_kernel"] == 0,
+          f"bf16 decode attention's kernels in the trace: {decode}")
 
 
 # --------------------------------------------------------------------------
@@ -927,6 +1036,11 @@ def free_device(what: str):
 KERNEL_ID_KEYS = ("name", "route", "source", "replaces")
 KERNEL_RUN_KEYS = ("max_abs_err", "ok", "ms", "plain_ms", "bound_ms",
                    "bound_by", "library_ms")
+DEVICE_KEYS = ("device_ms", "library_device_ms")    # where a row has them
+
+
+def run_keys(row) -> dict:
+    return {k: row[k] for k in KERNEL_RUN_KEYS + DEVICE_KEYS if k in row}
 
 
 def main() -> int:
@@ -947,19 +1061,15 @@ def main() -> int:
     lib = _build.build()
     log(phase="build", seconds=time.perf_counter() - t0, library=lib.name,
         nvcc_seconds=_build.BUILD_LOG.get("seconds"))
-    flash_instances(_build)
-
     flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)  # 128 MB
+    attention_instances(_build)
     flash = check_flash(dev, flush)
-    decode = check_decode(dev, flush)
+    decode, rg_decode = check_decode_rows(dev, flush)
     topk = check_topk(dev, flush)
     ssm = check_ssm(dev, flush)
     # recurrentgemma-9b's shapes: 16 query heads over 1 KV head of 256
     rg_flash = check_flash(dev, flush, KH=1, hd=256, window=2048,
                            seed=SEED + 7)
-    rg_decode = check_decode(dev, flush, S=4096, KH=1, hd=256,
-                             positions=(4000, 2500, 2100, 37),
-                             windows=(2048,), seed=SEED + 8)
     rg = check_rg_lru(dev, flush)
     del flush
     torch.cuda.empty_cache()
@@ -983,10 +1093,10 @@ def main() -> int:
                       (topk, None), (ssm, None), (rg, None)):
         name = row["name"]
         paths = {p: n[name] for p, n in by_path.items() if name in n}
-        entry = dict({k: row[k] for k in KERNEL_ID_KEYS + KERNEL_RUN_KEYS},
+        entry = dict({k: row[k] for k in KERNEL_ID_KEYS}, **run_keys(row),
                      launches=sum(paths.values()), launches_by_path=paths)
         if wide is not None:        # the same kernel at this path's shapes
-            entry[RGEMMA] = {k: wide[k] for k in KERNEL_RUN_KEYS}
+            entry[RGEMMA] = run_keys(wide)
         kernels.append(entry)
     log(phase="total", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

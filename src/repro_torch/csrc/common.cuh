@@ -1,6 +1,9 @@
 // Shared helpers of the repro_torch CUDA kernels: the export macro, dtype
-// conversion and warp reductions.
+// conversion, warp reductions, and the async copies, ldmatrix and mma.sync
+// wrappers of the two tensor-core attention kernels.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,12 +87,99 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---- Hopper building blocks of the tensor-core kernels (flash_attention,
+// decode_attention): async copies, ldmatrix, mma.sync, ex2 ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1 (L2 fetches whole 128-byte
+// lines); zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// mma.sync fragment coordinates: lane = 4 * g + t.  A (16x16): regs 0..3
+// hold rows (g, g+8, g, g+8) at columns (2t, 2t, 2t+8, 2t+8) and +1.
+// B (16x8): regs 0,1 hold rows (2t, 2t+8) and +1 of column g.  C (16x8):
+// regs 0,1 row g, regs 2,3 row g+8, columns 2t and 2t+1.  An ldmatrix.x4
+// lane gives the row address of matrix lane / 8; thread lane receives
+// (row lane / 4, columns 2 (lane % 4) and +1) of each matrix, or with
+// .trans (rows 2 (lane % 4) and +1, column lane / 4).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (flush-to-zero; 2^(-1e30) is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Allow a kernel more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+// out: registers a thread, local bytes a thread (spills and stack),
+// dynamic shared bytes and resident blocks per SM of one instance, as its
+// launcher starts it (chip_smoke.py phase 1 logs them)
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, int smem, int* out) {
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return err;
 }
 
 }  // namespace repro

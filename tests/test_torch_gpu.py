@@ -132,6 +132,89 @@ def test_decode_attention_kernel_mqa_hd256(cuda, B, S, window, pos, dtype):
     _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", decode_ops.GROUPS)
+@pytest.mark.parametrize(
+    "B,S,hd,window,pos",
+    [(1, 200, 64, 0, [0]),                        # a position of 0
+     (3, 130, 64, 0, [129, 130, 1000]),           # at and past S - 1
+     (2, 300, 128, 100, [250, 299]),              # a window cutting a tile
+     (2, 1000, 32, 0, [999, 640]),                # S not a multiple of 64
+     (2, 77, 16, 0, [76, 5]),                     # hd 16, one ragged tile
+     (1, 4097, 128, 0, [4096]),                   # B 1, one long row
+     (4, 3000, 64, 0, [2999, 1, 64, 1500]),       # B 4, very uneven rows
+     (4, 5000, 256, 2048, [4999, 2047, 2048, 0])])  # windowed and uneven
+def test_decode_attention_kernel_edges(cuda, B, S, hd, window, pos, G,
+                                       dtype):
+    """The split rule's edges: rows of one key, rows cut by the cache end
+    or the window, chunks that end inside a tile, every G in GROUPS (the
+    bf16 kernel's MMA rows past G are padding)."""
+    rng = np.random.default_rng(8)
+    KH = 2
+    q = _t(rng, (B, 1, G * KH, hd), dtype, cuda)
+    kc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    vc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = decode_ops.decode_attention.launches
+    out = decode_ops.decode_attention(q, kc, vc, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + 1
+    _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,window,pos",
+                         [(4, 2048, 16, 16, 128, 0, [1900, 1024, 300, 37]),
+                          (4, 4096, 16, 1, 256, 2048,
+                           [4000, 2500, 2100, 37])])
+def test_decode_attention_repeated_calls_identical(cuda, B, S, H, KH, hd,
+                                                   window, pos):
+    """Three bf16 calls on the same inputs give the same bits: the last
+    block of each row merges the partials in a fixed order and sets the
+    row's counter back to 0 for the next call."""
+    rng = np.random.default_rng(9)
+    q = _t(rng, (B, 1, H, hd), torch.bfloat16, cuda)
+    kc = _t(rng, (B, S, KH, hd), torch.bfloat16, cuda)
+    vc = _t(rng, (B, S, KH, hd), torch.bfloat16, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    outs = [decode_ops.decode_attention(q, kc, vc, pos, window=window)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(decode_ops._COUNTERS[q.device, stream].abs().sum()) == 0
+    _close(outs[0], decode_attention_ref(q, kc, vc, pos, window=window),
+           torch.bfloat16)
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+def test_decode_attention_two_streams(cuda):
+    """bf16 calls issued on two streams at once, with different lengths,
+    each match the plain version: every stream has row counters of its
+    own, so one stream's blocks never count toward another's merge."""
+    rng = np.random.default_rng(10)
+    B, S, H, KH, hd = 4, 2048, 16, 16, 128
+    q = _t(rng, (B, 1, H, hd), torch.bfloat16, cuda)
+    kc = _t(rng, (B, S, KH, hd), torch.bfloat16, cuda)
+    vc = _t(rng, (B, S, KH, hd), torch.bfloat16, cuda)
+    positions = [torch.tensor(p, dtype=torch.int32, device=cuda)
+                 for p in ([1900, 1024, 300, 37], [2047, 64, 1500, 700])]
+    streams = [torch.cuda.Stream(cuda) for _ in positions]
+    outs = [[] for _ in positions]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(20):
+        for s, pos, out in zip(streams, positions, outs):
+            with torch.cuda.stream(s):
+                out.append(decode_ops.decode_attention(q, kc, vc, pos))
+    torch.cuda.synchronize()
+    for s, pos, out in zip(streams, positions, outs):
+        assert int(decode_ops._COUNTERS[q.device, s.cuda_stream].abs()
+                   .sum()) == 0
+        ref = decode_attention_ref(q, kc, vc, pos)
+        for o in out:
+            _close(o, ref, torch.bfloat16)
+
+
 @pytest.mark.parametrize("N,D,Q,k,bn", [(1000, 32, 5, 10, 64),
                                         (513, 16, 3, 7, 128),
                                         (64, 8, 1, 64, 16),
@@ -187,6 +270,24 @@ def test_flash_attention_instance_fits(cuda, hd, dtype):
         flash_ops.instance_info(hd + 8, dtype)
     with pytest.raises(ValueError, match="no instance"):
         flash_ops.instance_info(hd, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", decode_ops.HEAD_DIMS)
+def test_decode_attention_instance_fits(cuda, hd, dtype):
+    """Every instance is resident on the card with the shared memory its
+    launcher asks for at most; the bf16 ones (one per head dim, for every
+    G) keep no local memory (no spills)."""
+    info = decode_ops.instance_info(hd, dtype)
+    assert info["blocks_per_sm"] >= 1
+    assert 0 < info["registers"] <= 255
+    if dtype == torch.bfloat16:
+        assert info["local_bytes"] == 0, info
+        assert info["shared_bytes"] > 0
+    with pytest.raises(ValueError, match="no instance"):
+        decode_ops.instance_info(hd + 8, dtype)
+    with pytest.raises(ValueError, match="no instance"):
+        decode_ops.instance_info(hd, torch.float16)
 
 
 def test_kernels_reject_bad_input(cuda):

@@ -79,7 +79,9 @@ def test_flash_attention_plain_matches_jax_kernel(B, S, H, KH, hd, causal,
 @pytest.mark.parametrize("B,S,H,KH,hd,window,bs",
                          [(3, 100, 8, 4, 32, 0, 32),
                           (2, 64, 4, 4, 16, 16, 16),
-                          (1, 257, 8, 2, 64, 0, 64)])
+                          (1, 257, 8, 2, 64, 0, 64),
+                          (2, 300, 16, 1, 256, 64, 64),   # recurrentgemma-9b
+                          (3, 150, 16, 2, 64, 0, 64)])    # G 8
 def test_decode_attention_plain_matches_jax_kernel(B, S, H, KH, hd, window,
                                                    bs, dtype):
     rng = np.random.default_rng(1)
@@ -96,6 +98,24 @@ def test_decode_attention_plain_matches_jax_kernel(B, S, H, KH, hd, window,
     _close(out, ref, DTYPES[dtype][2])
     _close(decode_attention_ref(qt, kt, vt, torch.from_numpy(pos),
                                 window=window), ref, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("rows,n_max,G", [(64, 2048, 1),    # olmo-1b
+                                           (4, 2048, 16),    # recurrentgemma
+                                           (8, 32768, 8),
+                                           (1, 64, 1),
+                                           (1, 100, 16),
+                                           (4096, 4096, 1)])  # > 2 waves
+def test_decode_chunk_keys(rows, n_max, G):
+    """The bf16 kernel's keys per block: whole 64-key tiles, and a grid
+    (rows x blocks for the longest row) within GRID_WAVES waves of
+    resident blocks unless one chunk already holds the longest row."""
+    grid_blocks = decode_ops.GRID_WAVES * 1 * 132   # 1 block per SM, 132 SMs
+    chunk = decode_ops.chunk_keys(grid_blocks, rows, n_max, G)
+    assert chunk >= decode_ops.TILE_KEYS
+    assert chunk % decode_ops.TILE_KEYS == 0
+    blocks = rows * -(-n_max // chunk)
+    assert blocks <= grid_blocks or chunk >= n_max
 
 
 @pytest.mark.parametrize("N,D,Q,k,bn", [(1000, 32, 5, 10, 64),
