@@ -36,6 +36,21 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      versions;
   5. a traced window of the engine serving 4 requests at once: device
      time by kernel group and the device's idle share;
+  5b. the plan layer (``repro_torch.core``) over phase 3's provider:
+     llm_filter, llm_complete and llm_embedding over a 64-row table (16
+     rows repeated), llm_reduce over 8 rows and llm_rerank over 16, through
+     one SemanticContext with a RequestScheduler (4 workers) and a fresh
+     prediction cache, then again on that context, then with no scheduler:
+     each call's request counts equal the same call's on MockProvider, the
+     second pass sends no request, the serial run returns the same
+     results, every request generates its full length, the embeddings
+     match provider.embed, and flash and decode attention launch in this
+     phase; in the serial run every flash-attention call and one
+     decode-attention call in 7 are held against the plain version on the
+     same inputs (the phase's own shapes: one live slot of four, positions
+     up to ~1,900, a 48-text embed batch), and the embed batch of its
+     distinct texts through the kernels against the same through the
+     plain versions;
   6. olmo-1b freed, the falcon-mamba-7b path at full width through the
      same entry points (one 64-passage embed request, a device-resident
      index, top-k, 2 RAG completions, 5 raw requests on 4 slots), the
@@ -55,8 +70,9 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      rounding of one attention output already moves them past the
      tolerance at this depth; the script measures that floor);
   8. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
-     launches summed over the paths, and by path), then the card, then the
-     result line.
+     launches summed over the paths, and by path: olmo-1b, plan,
+     falcon-mamba-7b, recurrentgemma-9b), then the card, then the result
+     line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -761,9 +777,9 @@ def compare_decode_rounding(engine, prefix):
 
 
 def compare_embed_plain(provider, docs, prefix=""):
-    """One 64-text embed batch through the kernels and through every
-    full-sequence kernel's plain version (flash attention, the selective
-    scan, the RG-LRU recurrence: whichever the model runs)."""
+    """One embed batch (the first 64 texts) through the kernels and through
+    every full-sequence kernel's plain version (flash attention, the
+    selective scan, the RG-LRU recurrence: whichever the model runs)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rg_lru.ref import rg_lru_ref
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -850,6 +866,287 @@ def profile_window(provider):
     check(decode["decode_mma_kernel"] > 0
           and decode["decode_combine_kernel"] == 0,
           f"bf16 decode attention's kernels in the trace: {decode}")
+
+
+# --------------------------------------------------------------------------
+# phase 5b: the plan layer over the full-width olmo-1b provider
+# --------------------------------------------------------------------------
+# BaseProvider estimates 0.33 tokens a byte and the provider feeds one token
+# a byte, so a 640-token window keeps a request near 1,930 bytes: with at
+# most 64 new tokens it fits the engine's 2,048 slots, which drop a longer
+# request with no error (ROADMAP.md, queue C)
+PLAN_WINDOW = 640
+PLAN_OUT = 4
+PLAN_PROMPTS = {"filter": "Is this paper about join algorithms?",
+                "complete": "Name the paper's main technique.",
+                "reduce": "Summarize what these papers have in common.",
+                "rerank": "Rank the papers by relevance to vector search."}
+PLAN_REPORT = ("n_tuples", "n_unique", "cache_hits", "requests", "retries",
+               "nulls", "batch_sizes")
+
+
+class HeldKernel:
+    """A kernel's wrapper that holds one call in ``every`` against the
+    plain version on the same inputs, at TOLS of q's dtype (allclose's
+    test).  Every call goes through the wrapper, whose count moves as it
+    does on the path; the plain version launches no kernel.  Each held
+    call's error, its excess over the tolerance and (for decode attention)
+    its largest position stay on the card until ``read``: no call waits
+    for the card."""
+
+    def __init__(self, kernel, plain, every=1):
+        self.kernel, self.plain, self.every = kernel, plain, every
+        self.calls, self.rows, self.shapes = 0, [], set()
+
+    # the wrapper counts under its module-level name, which is this object
+    # while the patch holds: pass the count through to the wrapper's own
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.kernel.launches = n
+
+    def __call__(self, q, k, v, *args, **kw):
+        out = self.kernel(q, k, v, *args, **kw)
+        self.calls += 1
+        if (self.calls - 1) % self.every:
+            return out
+        ref = self.plain(q, k, v, *args, **kw).float()
+        tol = TOLS[q.dtype]
+        diff = (out.float() - ref).abs()
+        top = (args[0].max().float() if args and torch.is_tensor(args[0])
+               else diff.new_tensor(-1.0))
+        self.rows.append(torch.stack(
+            [diff.max(), (diff - tol - tol * ref.abs()).max(), top]))
+        self.shapes.add((tuple(q.shape), tuple(k.shape)))
+        return out
+
+    def read(self) -> dict:
+        check(bool(self.rows), "a held kernel was never called")
+        rows = torch.stack(self.rows).cpu()
+        top = int(rows[:, 2].max())
+        return dict(calls=self.calls, held=len(self.rows),
+                    max_abs_err=float(rows[:, 0].max()),
+                    ok=bool((rows[:, 1] <= 0).all()),
+                    max_position=top if top >= 0 else None,
+                    shapes=[list(map(list, s)) for s in sorted(self.shapes)])
+
+
+def plan_table(rng):
+    """64 rows of {title, abstract}; the last 16 repeat earlier rows."""
+    rows = [{"title": f"paper {i}", "abstract": a}
+            for i, a in enumerate(passages(rng, 48, 90, 129))]
+    return rows + [dict(rows[int(i)]) for i in rng.integers(0, 48, 16)]
+
+
+def plan_pass(core, ctx, rows) -> dict:
+    """The phase's calls, once, on ``ctx``: for each its result, the counts
+    of its ``ExecutionReport`` (None for reduce and rerank, which write
+    none; ``batch_sizes`` sorted, since the scheduler appends them in
+    completion order), the provider counters it moved, and its wall."""
+    gen, emb = {"model_name": "plan-gen"}, {"model_name": "plan-embed"}
+
+    def prompt(kind):
+        return {"prompt": PLAN_PROMPTS[kind]}
+
+    calls = (("filter", lambda: core.llm_filter(ctx, gen, prompt("filter"),
+                                                rows)),
+             ("complete", lambda: core.llm_complete(
+                 ctx, gen, prompt("complete"), rows)),
+             ("embedding", lambda: core.llm_embedding(
+                 ctx, emb, [r["abstract"] for r in rows])),
+             ("reduce", lambda: core.llm_reduce(ctx, gen, prompt("reduce"),
+                                                rows[:8])),
+             ("rerank", lambda: core.llm_rerank(
+                 ctx, gen, prompt("rerank"), rows[:16], window=6, stride=3)))
+    out = {}
+    for name, call in calls:
+        n_reports = len(ctx.reports)
+        before = ctx.provider.stats.snapshot()
+        t0 = time.perf_counter()
+        value = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = ctx.provider.stats.snapshot()
+        report = None
+        if len(ctx.reports) > n_reports:
+            rep = ctx.reports[-1]
+            report = {k: getattr(rep, k) for k in PLAN_REPORT}
+            report["batch_sizes"] = sorted(report["batch_sizes"])
+        out[name] = dict(value=value, report=report, wall_s=wall,
+                         **{k: after[k] - before[k] for k in
+                            ("calls", "prompt_tokens", "output_tokens")})
+    return out
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+    return a == b
+
+
+def _plan_log(run: dict) -> dict:
+    return {name: {k: v for k, v in r.items() if k != "value"}
+            for name, r in run.items()}
+
+
+def plan_path(provider):
+    """The plan layer's semantic functions through one ``SemanticContext``
+    with a ``RequestScheduler(max_workers=4)`` and a fresh prediction cache
+    over the phase-3 provider: llm_filter, llm_complete and llm_embedding
+    over a 64-row table (16 rows repeated), llm_reduce over 8 rows and
+    llm_rerank over 16 (window 6, stride 3); then the same calls again on
+    that context, and once more with no scheduler and a fresh cache.  The
+    counts must equal those of the same calls on ``MockProvider``, the
+    second pass must send no request, the serial run must give the same
+    results, every request must generate its full length, and the
+    embeddings must match ``provider.embed`` called directly.  The serial
+    run also holds its flash-attention calls and one decode-attention call
+    in 7 against the plain version on the same inputs (``HeldKernel``),
+    and the embed batch of the distinct texts is held against the plain
+    path."""
+    import repro_torch.core as core
+    from repro_torch.core import (Catalog, MockProvider, PredictionCache,
+                                  RequestScheduler, SemanticContext,
+                                  build_metaprompt, estimate_tokens,
+                                  serialize_tuple)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+
+    rows = plan_table(np.random.default_rng(SEED + 5))
+    catalog = Catalog()
+    catalog.create_model("plan-gen", arch="olmo-1b",
+                         context_window=PLAN_WINDOW,
+                         max_output_tokens=PLAN_OUT)
+    emb_model = catalog.create_model("plan-embed", arch="olmo-1b")
+    # reduce sends one request for its rows and rerank one a window, and
+    # neither splits on overflow: the widest of each must fit the window
+    widest = sorted(rows[:16], key=lambda r: len(serialize_tuple(r)))[-6:]
+    for kind, batch in (("reduce", rows[:8]), ("rerank", widest)):
+        need = estimate_tokens(build_metaprompt(
+            kind, PLAN_PROMPTS[kind], batch).text) + PLAN_OUT
+        check(need <= PLAN_WINDOW,
+              f"the {kind} prompt needs {need} of {PLAN_WINDOW} tokens")
+
+    def context(prov, scheduler):
+        return SemanticContext(catalog=catalog, provider=prov,
+                               cache=PredictionCache(), scheduler=scheduler)
+
+    with RequestScheduler(max_workers=4) as sched:
+        on_mock = plan_pass(core, context(MockProvider(), sched), rows)
+
+    counts = {"flash_attention": flash_attention,
+              "decode_attention": decode_attention}
+    engine = provider.engine
+    generate = engine.generate
+    requests = []                   # (prompt bytes, new tokens asked, got)
+
+    def recording(prompt, max_new_tokens=32, eos_token=-1):
+        toks = generate(prompt, max_new_tokens, eos_token)
+        requests.append((len(prompt), max_new_tokens, len(toks)))
+        return toks
+
+    for fn in counts.values():
+        fn.launches = 0
+    steps0 = engine.steps
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(engine, "generate", recording):
+        with RequestScheduler(max_workers=4) as sched:
+            ctx = context(provider, sched)
+            first = plan_pass(core, ctx, rows)
+            stats_first = provider.stats.snapshot()
+            second = plan_pass(core, ctx, rows)
+            stats_second = provider.stats.snapshot()
+            sched_stats = {k: getattr(sched.stats, k) for k in
+                           ("jobs", "requests", "retries", "coalesced",
+                            "max_inflight")}
+        held = {"flash_attention": HeldKernel(flash_attention, attention_ref),
+                # one call in 7: prime to the 16 layers, so every layer
+                # is held, at positions spread over each request
+                "decode_attention": HeldKernel(decode_attention,
+                                               decode_attention_ref, 7)}
+        with mock.patch.object(L.flash_ops, "flash_attention",
+                               held["flash_attention"]), \
+                mock.patch.object(L.decode_ops, "decode_attention",
+                                  held["decode_attention"]):
+            serial = plan_pass(core, context(provider, None), rows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    held = {name: h.read() for name, h in held.items()}
+    log(phase="plan_kernels_vs_plain", atol=TOLS[torch.bfloat16],
+        rtol=TOLS[torch.bfloat16], **held)
+    for name, h in held.items():
+        check(h["ok"],
+              f"plan: a {name} call of the serial run differs from its "
+              f"plain version: {h}")
+    log(phase="plan", rows=len(rows), context_window=PLAN_WINDOW,
+        max_output_tokens=PLAN_OUT, wall_s=wall, peak_memory_gb=peak / 1e9,
+        launches=launches, engine_steps=engine.steps - steps0,
+        generate_calls=len(requests),
+        max_request_bytes=max(p + n for p, n, _ in requests),
+        scheduler=sched_stats, mock=_plan_log(on_mock),
+        first=_plan_log(first), second=_plan_log(second),
+        serial=_plan_log(serial))
+
+    for name, r in first.items():
+        check(r["report"] == on_mock[name]["report"]
+              and r["calls"] == on_mock[name]["calls"],
+              f"plan {name}: counts {r['report']}, {r['calls']} calls; on "
+              f"MockProvider {on_mock[name]['report']}, "
+              f"{on_mock[name]['calls']} calls")
+        check(_same(second[name]["value"], r["value"]),
+              f"plan {name}: the cached pass returned other results")
+        if second[name]["report"] is not None:
+            rep = second[name]["report"]
+            check(rep["requests"] == 0
+                  and rep["cache_hits"] == rep["n_unique"],
+                  f"plan {name}: the cached pass reported {rep}")
+        check(_same(serial[name]["value"], r["value"])
+              and serial[name]["report"] == r["report"]
+              and serial[name]["calls"] == r["calls"],
+              f"plan {name}: the serial run differs from the scheduled one")
+    check(stats_second == stats_first,
+          f"the cached pass reached the provider: {stats_first} -> "
+          f"{stats_second}")
+    # every request generated min(max_output_tokens x rows, 64) tokens
+    asked = sorted(
+        [min(PLAN_OUT * b, 64) for run in (first, serial)
+         for name in ("filter", "complete")
+         for b in run[name]["report"]["batch_sizes"]]
+        + [PLAN_OUT] * sum(run[name]["calls"] for run in (first, serial)
+                           for name in ("reduce", "rerank")))
+    check(sorted(n for _, n, _ in requests) == asked
+          and all(got == n for _, n, got in requests),
+          f"generation lengths {requests}, expected {asked}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the plan path")
+
+    vecs = first["embedding"]["value"]
+    check(vecs.shape == (len(rows), engine.cfg.d_model)
+          and np.isfinite(vecs).all()
+          and np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3),
+          "llm_embedding vectors are finite unit vectors")
+    texts = [r["abstract"] for r in rows]
+    distinct = list(dict.fromkeys(texts))
+    direct = np.concatenate([provider.embed(emb_model, distinct[i:i + 16])
+                             for i in range(0, len(distinct), 16)])
+    ours = vecs[[texts.index(t) for t in distinct]]
+    cos = float(np.min(np.sum(ours * direct, axis=1)
+                       / np.linalg.norm(ours, axis=1)
+                       / np.linalg.norm(direct, axis=1)))
+    log(phase="plan_embed_vs_direct", texts=len(distinct), min_cosine=cos)
+    check(cos >= 0.999, f"llm_embedding vs provider.embed: cosine {cos}")
+    compare_embed_plain(provider, distinct, prefix="plan_")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1081,13 +1378,14 @@ def main() -> int:
     compare_decode_rounding(provider.engine, "")
     compare_embed_plain(provider, docs)
     profile_window(provider)
+    plan = plan_path(provider)
     del provider, docs
     free_device("olmo")
     mamba = mamba_path(dev)
     free_device("mamba")
     rgemma = rgemma_path(dev)
 
-    by_path = {"olmo-1b": olmo, MAMBA: mamba, RGEMMA: rgemma}
+    by_path = {"olmo-1b": olmo, "plan": plan, MAMBA: mamba, RGEMMA: rgemma}
     kernels = []
     for row, wide in ((flash, rg_flash), (decode[0], rg_decode[0]),
                       (topk, None), (ssm, None), (rg, None)):

@@ -1,11 +1,10 @@
-"""Meta-prompt construction (paper §2.3, Fig. 1); a copy of
-``repro/core/metaprompt.py``, which the port keeps as its own.
+"""Meta-prompt construction (paper §2.3, Fig. 1).
 
 The system composes the full prompt from a structured template:
 
   [STATIC PREFIX — identical across every call for a (model, prompt,
    function, serialization) tuple, so a serving stack can reuse its KV
-   prefix across batches]
+   prefix across batches ("KV-cache friendly")]
       system instructions
       task: the user prompt text
       output contract (text / JSON / bool / ranking) + formatting rules
@@ -14,7 +13,10 @@ The system composes the full prompt from a structured template:
       output stub
 
 Tuple serialization is deterministic and column-ordered so identical
-inputs render identically.
+inputs render identically (prediction-cache hits, dedup).
+
+A copy of ``repro/core/metaprompt.py``; its only difference is this
+docstring.
 """
 
 from __future__ import annotations
@@ -50,6 +52,19 @@ _OUTPUT_CONTRACT = {
         "map to true/false, complete sub-tasks to a text string, "
         "complete_json sub-tasks to a nested JSON object."),
 }
+
+
+def build_multi_task(sub_kinds: Sequence[str],
+                     sub_prompts: Sequence[str]) -> str:
+    """Compose the user-prompt for a fused (multi-output) semantic pass.
+
+    Each sub-task renders as ``t<k> [<kind>]: <prompt>`` — the tag doubles
+    as the output JSON key, and the ``[<kind>]`` annotation is parseable by
+    providers (MockProvider uses it to shape deterministic answers)."""
+    lines = ["Perform ALL of the following sub-tasks on every input tuple:"]
+    for k, (kind, prompt) in enumerate(zip(sub_kinds, sub_prompts)):
+        lines.append(f"t{k} [{kind}]: {prompt}")
+    return "\n".join(lines)
 
 
 def serialize_tuple(tup: dict, fmt: str = "xml") -> str:

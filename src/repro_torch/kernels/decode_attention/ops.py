@@ -34,7 +34,11 @@ _SIGNATURES = {
 INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
 # per (device, stream): the bf16 kernel's per-row counters, zero between
 # calls (the last block of a row sets its counter back to 0); calls on one
-# stream run in order, so each stream needs one set of its own
+# stream run in order, so each stream needs one set of its own.  No lock of
+# its own: the plan layer's worker threads reach this only through
+# LocalTorchProvider's ``_engine_lock``, which serialises every engine call,
+# and a worker thread's current stream is the device's default stream, so
+# they share one set in order
 _COUNTERS: dict = {}
 
 
