@@ -51,6 +51,22 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      up to ~1,900, a 48-text embed batch), and the embed batch of its
      distinct texts through the kernels against the same through the
      plain versions;
+  5c. paper Query 3 as one plan over phase 3's provider: a corpus Table
+     of 16,384 passages and 4 questions through ``Pipeline.hybrid_topk``
+     (k 8 of 32 candidates) then ``llm_rerank(by="q")``, with 4 scheduler
+     workers, an in-memory prediction cache and an ``IndexStore`` in a
+     temporary directory: ``check()`` clean, ``collect(verify="strict")``,
+     the embed reports and provider calls equal to the same plan's on
+     MockProvider, every block-max call and one flash call in 17 and one
+     decode call in 7 held against the plain version on the same inputs,
+     each question's 32 vector candidates against the plain scan over the
+     same index (ids exact but for logged near-ties, scores within 1e-5),
+     a second collect that sends nothing, a fresh context that reads the
+     index from the store and embeds only the questions, 1,024 appended
+     passages (only they embedded; the grown index ranks as one built from
+     scratch), the IVF route at full probe against the exact plan and
+     ``ann="auto"``'s choice and recall@8 logged; block-max, flash and
+     decode attention launch in this phase;
   6. olmo-1b freed, the falcon-mamba-7b path at full width through the
      same entry points (one 64-passage embed request, a device-resident
      index, top-k, 2 RAG completions, 5 raw requests on 4 slots), the
@@ -70,7 +86,7 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      rounding of one attention output already moves them past the
      tolerance at this depth; the script measures that floor);
   8. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
-     launches summed over the paths, and by path: olmo-1b, plan,
+     launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b), then the card, then the result
      line.
 
@@ -887,12 +903,12 @@ PLAN_REPORT = ("n_tuples", "n_unique", "cache_hits", "requests", "retries",
 
 class HeldKernel:
     """A kernel's wrapper that holds one call in ``every`` against the
-    plain version on the same inputs, at TOLS of q's dtype (allclose's
-    test).  Every call goes through the wrapper, whose count moves as it
-    does on the path; the plain version launches no kernel.  Each held
-    call's error, its excess over the tolerance and (for decode attention)
-    its largest position stay on the card until ``read``: no call waits
-    for the card."""
+    plain version on the same inputs, at TOLS of the first input's dtype
+    (allclose's test).  Every call goes through the wrapper, whose count
+    moves as it does on the path; the plain version launches no kernel.
+    Each held call's error, its excess over the tolerance and (for decode
+    attention) its largest position stay on the card until ``read``: no
+    call waits for the card."""
 
     def __init__(self, kernel, plain, every=1):
         self.kernel, self.plain, self.every = kernel, plain, every
@@ -908,19 +924,21 @@ class HeldKernel:
     def launches(self, n):
         self.kernel.launches = n
 
-    def __call__(self, q, k, v, *args, **kw):
-        out = self.kernel(q, k, v, *args, **kw)
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
         self.calls += 1
         if (self.calls - 1) % self.every:
             return out
-        ref = self.plain(q, k, v, *args, **kw).float()
-        tol = TOLS[q.dtype]
+        ref = self.plain(*args, **kw).float()
+        tol = TOLS[args[0].dtype]
         diff = (out.float() - ref).abs()
-        top = (args[0].max().float() if args and torch.is_tensor(args[0])
+        # decode attention's fourth input: the positions
+        top = (args[3].max().float()
+               if len(args) > 3 and torch.is_tensor(args[3])
                else diff.new_tensor(-1.0))
         self.rows.append(torch.stack(
             [diff.max(), (diff - tol - tol * ref.abs()).max(), top]))
-        self.shapes.add((tuple(q.shape), tuple(k.shape)))
+        self.shapes.add((tuple(args[0].shape), tuple(args[1].shape)))
         return out
 
     def read(self) -> dict:
@@ -1146,6 +1164,375 @@ def plan_path(provider):
     log(phase="plan_embed_vs_direct", texts=len(distinct), min_cosine=cos)
     check(cos >= 0.999, f"llm_embedding vs provider.embed: cosine {cos}")
     compare_embed_plain(provider, distinct, prefix="plan_")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 5c: paper Query 3 as one plan over the full-width olmo-1b provider
+# --------------------------------------------------------------------------
+Q3_DOCS = 16_384
+Q3_APPEND = 1_024
+Q3_K, Q3_CANDIDATES = 8, 32
+Q3_QUESTIONS = ("Which join algorithms handle cyclic queries?",
+                "How does a vector index scan rank passages?",
+                "When does a semantic cache save model calls?",
+                "What does score fusion add to hybrid retrieval?")
+Q3_RERANK = "Rank the passages by how well they answer the question."
+Q3_GEN, Q3_EMB = {"model_name": "q3-gen"}, {"model_name": "q3-embed"}
+SCORE_TOL = 1e-5                 # cosine scores: the engine's parity tests
+
+
+def q3_corpus(engine_mod, rng, n, start=0):
+    """``n`` synthetic research passages {id, title, content, year}, the
+    content 60-128 bytes from the fixed vocabulary."""
+    ids = list(range(start, start + n))
+    return engine_mod.Table({
+        "id": ids, "title": [f"passage {i}" for i in ids],
+        "content": passages(rng, n, 60, 129),
+        "year": [1990 + i % 35 for i in ids]})
+
+
+def q3_plan(engine_mod, ctx, questions, corpus):
+    """Paper Query 3 (``examples/hybrid_search.py``'s plan form): hybrid
+    retrieval (embedding scan + BM25 + fusion), then the model's listwise
+    rerank of each question's passages."""
+    return (engine_mod.Pipeline(ctx, questions, "question")
+            .hybrid_topk("score", Q3_EMB, "q", corpus, k=Q3_K,
+                         doc_col="content", candidate_k=Q3_CANDIDATES)
+            .llm_rerank(Q3_GEN, {"prompt": Q3_RERANK}, ["content"], by="q"))
+
+
+def q3_counts(ctx, n_reports, before) -> dict:
+    """What a run on ``ctx`` sent: its embed reports' counts (sorted, as
+    the scheduler completes them in any order) and the provider counters
+    it moved (the rerank writes no report)."""
+    reports = sorted(
+        [{k: (sorted(getattr(r, k)) if k == "batch_sizes"
+              else getattr(r, k)) for k in PLAN_REPORT}
+         for r in ctx.reports[n_reports:]], key=repr)
+    after = ctx.provider.stats.snapshot()
+    return dict(reports=reports, **{k: after[k] - before[k] for k in
+                                    ("calls", "prompt_tokens",
+                                     "output_tokens")})
+
+
+def q3_run(ctx, engine_mod, questions, corpus, strict=True):
+    """One collect of the plan on ``ctx``: (table, counts, pipeline)."""
+    n_reports, before = len(ctx.reports), ctx.provider.stats.snapshot()
+    pipe = q3_plan(engine_mod, ctx, questions, corpus)
+    diags = pipe.check()
+    check(diags == [], f"query3: check() reported {[str(d) for d in diags]}")
+    table = pipe.collect(verify="strict" if strict else "off")
+    return table, q3_counts(ctx, n_reports, before), pipe
+
+
+def _embedded(counts) -> int:
+    return sum(r["n_tuples"] for r in counts["reports"])
+
+
+def busy(spans) -> dict:
+    """Calls, items and the seconds in which at least one call of
+    ``spans`` ((start, end, items) each) was running."""
+    total, until = 0.0, float("-inf")
+    for start, end, _ in sorted(spans):
+        total += max(0.0, end - max(start, until))
+        until = max(until, end)
+    return dict(requests=len(spans), items=sum(n for _, _, n in spans),
+                busy_s=total)
+
+
+def ranks_agree(ids, ref_ids, ref_scores, tol) -> tuple:
+    """(agree, near_ties): each query's ranked ids equal the reference's,
+    except that ids may trade places within a run of reference scores
+    less than 10 x ``tol`` apart (a near-tie, whose order two scans may
+    settle either way; counted); a run that reaches the rank limit is not
+    compared by id, since either side may cut it elsewhere."""
+    ok, ties = True, 0
+    for got, ref, s in zip(np.asarray(ids), np.asarray(ref_ids),
+                           np.asarray(ref_scores)):
+        start = 0
+        for r in range(1, len(ref) + 1):
+            if r < len(ref) and abs(s[r - 1] - s[r]) < 10 * tol:
+                continue
+            a, b = set(got[start:r].tolist()), set(ref[start:r].tolist())
+            ties += r - start > 1
+            if r - start == 1 or r < len(ref):
+                ok &= a == b
+            start = r
+    return bool(ok), ties
+
+
+def query3_path(provider):
+    """Paper Query 3 as one ``Pipeline`` over the phase-3 provider: a
+    corpus of 16,384 passages and 4 questions, ``hybrid_topk`` (k 8 of 32
+    candidates a retriever) then ``llm_rerank(by="q")``, through a
+    ``SemanticContext`` with a ``RequestScheduler(max_workers=4)``, an
+    in-memory prediction cache and an ``IndexStore`` in a temporary
+    directory.  Fails unless: ``check()`` is clean and ``collect(verify=
+    "strict")`` raises nothing; the embed reports and provider calls equal
+    the same plan's on ``MockProvider``; every block-max call is held
+    against its plain version and a sample of the flash and decode calls
+    too; each question's vector candidates equal the plain scan's over
+    the same index; a second collect sends nothing; a fresh context reads
+    the index from the store and embeds only the questions; 1,024 more
+    passages append to it and the grown index ranks as one built from
+    scratch; the IVF route at full probe returns the exact ids; and
+    block-max, flash and decode attention launch in this phase."""
+    import tempfile
+
+    import repro_torch.engine as E
+    from repro_torch.core import (Catalog, MockProvider, PredictionCache,
+                                  RequestScheduler, SemanticContext,
+                                  build_metaprompt, estimate_tokens,
+                                  llm_embedding)
+    from repro_torch.core.cache import IndexStore
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.topk_sim import ops as topk_ops
+    from repro_torch.kernels.topk_sim.ref import block_max_scores_ref
+    from repro_torch.models import layers as L
+    from repro_torch.retrieval import VectorIndex, cosine_topk, ensure_index
+    from repro_torch.retrieval.ivf import default_nlist
+
+    engine = provider.engine
+    dev = engine.device
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 6)
+    corpus = q3_corpus(E, rng, Q3_DOCS)
+    questions = E.Table({"q": list(Q3_QUESTIONS)})
+    catalog = Catalog()
+    catalog.create_model("q3-gen", arch="olmo-1b",
+                         context_window=PLAN_WINDOW,
+                         max_output_tokens=PLAN_OUT)
+    catalog.create_model("q3-embed", arch="olmo-1b")
+    # a question's rerank is one request over its k passages, which does
+    # not split on overflow: the widest k must fit the window
+    widest = sorted(corpus.column("content"), key=len)[-Q3_K:]
+    need = estimate_tokens(build_metaprompt(
+        "rerank", Q3_RERANK, [{"content": c} for c in widest]).text) \
+        + PLAN_OUT
+    check(need <= PLAN_WINDOW,
+          f"the rerank prompt needs {need} of {PLAN_WINDOW} tokens")
+    store_dir = tempfile.TemporaryDirectory()
+    store_path = str(Path(store_dir.name) / "q3.index.json")
+
+    # provider calls by kind (corpus and question embeds, rerank
+    # generations) and the IndexStore's file writes and reads: (start,
+    # end, items) each; the scheduler's workers overlap provider calls,
+    # waiting on the provider's engine lock
+    spans = {"embed": [], "complete": [], "store_write": [],
+             "store_read": []}
+
+    def timed(kind, fn):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            spans[kind].append((t, time.perf_counter(),
+                                len(args[1]) if kind == "embed" else 1))
+            return out
+        return call
+
+    def context(prov, scheduler, index_path=None):
+        return SemanticContext(catalog=catalog, provider=prov,
+                               cache=PredictionCache(), scheduler=scheduler,
+                               index_path=index_path, device=dev)
+
+    with RequestScheduler(max_workers=4) as sched:
+        _, on_mock, _ = q3_run(context(MockProvider(), sched), E,
+                               questions, corpus)
+
+    counts = {"topk_sim.block_max_scores": topk_ops.block_max_scores,
+              "flash_attention": flash_attention,
+              "decode_attention": decode_attention}
+    held = {"topk_sim.block_max_scores": HeldKernel(
+                topk_ops.block_max_scores, block_max_scores_ref),
+            # one call in 17 and one in 7: prime to the 16 layers
+            "flash_attention": HeldKernel(flash_attention, attention_ref,
+                                          17),
+            "decode_attention": HeldKernel(decode_attention,
+                                           decode_attention_ref, 7)}
+    for fn in counts.values():
+        fn.launches = 0
+    steps0 = engine.steps
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(topk_ops, "block_max_scores",
+                           held["topk_sim.block_max_scores"]), \
+            mock.patch.object(L.flash_ops, "flash_attention",
+                              held["flash_attention"]), \
+            mock.patch.object(L.decode_ops, "decode_attention",
+                              held["decode_attention"]), \
+            mock.patch.object(provider, "embed",
+                              timed("embed", provider.embed)), \
+            mock.patch.object(provider, "complete",
+                              timed("complete", provider.complete)), \
+            mock.patch.object(IndexStore, "put",
+                              timed("store_write", IndexStore.put)), \
+            mock.patch.object(IndexStore, "append_segment",
+                              timed("store_write",
+                                    IndexStore.append_segment)), \
+            mock.patch.object(IndexStore, "_load",
+                              timed("store_read", IndexStore._load)):
+        with RequestScheduler(max_workers=4) as sched:
+            ctx = context(provider, sched, store_path)
+            t1 = time.perf_counter()
+            table, first, pipe = q3_run(ctx, E, questions, corpus)
+            torch.cuda.synchronize()
+            first_wall = time.perf_counter() - t1
+            first_spent = {k: busy(spans[k]) for k in ("embed", "complete")}
+            t1 = time.perf_counter()
+            again, second, _ = q3_run(ctx, E, questions, corpus)
+            second_wall = time.perf_counter() - t1
+            explain = pipe.explain()
+        # the vector candidates of each question against the plain scan
+        texts = [str(c) for c in corpus.column("content")]
+        index, source = ensure_index(ctx, Q3_EMB, texts)
+        qv = llm_embedding(ctx, Q3_EMB, list(Q3_QUESTIONS))
+        vec = (E.Pipeline(ctx, questions, "question")
+               .vector_topk("cos", Q3_EMB, "q", corpus, k=Q3_CANDIDATES,
+                            doc_col="content").collect())
+        s_ref, i_ref = cosine_topk(index.vectors,
+                                   torch.from_numpy(qv).to(dev),
+                                   Q3_CANDIDATES)
+        s_ref, i_ref = s_ref.cpu().numpy(), i_ref.cpu().numpy()
+        vec_ids = np.asarray(vec.column("id")).reshape(len(qv), -1)
+        vec_s = np.asarray(vec.column("cos")).reshape(len(qv), -1)
+        gap = float(np.abs(np.diff(s_ref, axis=1)).min())
+        vec_ok, vec_ties = ranks_agree(vec_ids, i_ref, s_ref, SCORE_TOL)
+        vec_ok &= bool(np.allclose(np.sort(vec_s, axis=1),
+                                   np.sort(s_ref, axis=1),
+                                   atol=SCORE_TOL, rtol=0))
+        # IVF: full probe returns the exact ids; "auto" picks its probe
+        nlist = default_nlist(Q3_DOCS)
+        t1 = time.perf_counter()
+        index.ivf(nlist)
+        ivf_build_s = time.perf_counter() - t1
+
+        def vector_plan(**kw):
+            return (E.Pipeline(ctx, questions, "question")
+                    .vector_topk("cos", Q3_EMB, "q", corpus, k=Q3_K,
+                                 doc_col="content", **kw))
+
+        exact_t = vector_plan().collect()
+        exact = exact_t.column("id")
+        full_probe = vector_plan(ann="ivf", nlist=nlist,
+                                 nprobe=nlist).collect().column("id")
+        probe_ok, probe_ties = ranks_agree(
+            np.reshape(full_probe, (len(qv), -1)),
+            np.reshape(exact, (len(qv), -1)),
+            np.reshape(exact_t.column("cos"), (len(qv), -1)), SCORE_TOL)
+        auto = vector_plan(ann="auto")
+        node = [n for n in auto._plan().nodes if n.op == "vector_topk"][0]
+        decision = {k: node.info.get(f"ann_{k}") for k in
+                    ("resolved", "nlist", "nprobe", "recall_est")}
+        auto_ids = auto.collect().column("id")
+        recall = float(np.mean([
+            len(set(auto_ids[r:r + Q3_K]) & set(exact[r:r + Q3_K])) / Q3_K
+            for r in range(0, len(exact), Q3_K)]))
+
+        # a fresh session on the same store: no corpus embed
+        fresh = context(provider, None, store_path)
+        _, store_source = ensure_index(fresh, Q3_EMB, texts)
+        store_table, from_store, _ = q3_run(fresh, E, questions, corpus)
+        # the questions embed alone here, not packed with the corpus tail:
+        # another batch, so bf16 may round them otherwise (logged only)
+        store_same = [(r["q"], r["id"]) for r in store_table.rows()] == \
+            [(r["q"], r["id"]) for r in table.rows()]
+        # 1,024 new passages: only they are embedded
+        more = q3_corpus(E, rng, Q3_APPEND, start=Q3_DOCS)
+        grown_texts = texts + [str(c) for c in more.column("content")]
+        n_reports = len(fresh.reports)
+        grown, grown_source = ensure_index(fresh, Q3_EMB, grown_texts)
+        appended = sum(r.n_tuples for r in fresh.reports[n_reports:])
+        rebuilt = VectorIndex(grown.raw, device=dev)
+        grown_ids = grown.topk(qv, Q3_CANDIDATES)[1]
+        rebuilt_ids = rebuilt.topk(qv, Q3_CANDIDATES)[1]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    held = {name: h.read() for name, h in held.items()}
+    embeds = sum(r["requests"] for r in first["reports"])
+    # the exact scan and the IVF search alone, as a plan's vector
+    # retriever calls them (after the launch counts were read)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    topk_ms = []
+    for _ in range(20):
+        ev[0].record()
+        index.topk(qv, Q3_K)
+        ev[1].record()
+        torch.cuda.synchronize()
+        topk_ms.append(ev[0].elapsed_time(ev[1]))
+    t1 = time.perf_counter()
+    index.topk_ann(qv, Q3_K, nprobe=nlist, nlist=nlist)
+    ivf_search_s = time.perf_counter() - t1
+    log(phase="query3_kernels_vs_plain", **held)
+    log(phase="query3_explain", text=explain)
+    log(phase="query3", card=card_line(), docs=Q3_DOCS,
+        questions=len(Q3_QUESTIONS), k=Q3_K, candidate_k=Q3_CANDIDATES,
+        context_window=PLAN_WINDOW,
+        rows=len(table), first_wall_s=first_wall,
+        second_wall_s=second_wall, embed_requests=embeds,
+        embed_texts=_embedded(first),
+        provider_time=first_spent,
+        store_s={k: [end - start for start, end, _ in spans[k]]
+                 for k in ("store_write", "store_read")},
+        embed_texts_per_s=first_spent["embed"]["items"]
+        / first_spent["embed"]["busy_s"],
+        embed_requests_per_s=first_spent["embed"]["requests"]
+        / first_spent["embed"]["busy_s"],
+        rerank_requests=first["calls"] - embeds, first=first, second=second,
+        mock=on_mock, from_store=from_store, store_source=store_source,
+        store_run_same_ids=store_same,
+        append=dict(source=grown_source, embedded=appended,
+                    rows=len(grown)),
+        vector_candidates=dict(
+            ids_exact=bool(np.array_equal(vec_ids, i_ref)),
+            near_ties=vec_ties, min_adjacent_gap=gap, source=source,
+            max_score_err=float(np.abs(np.sort(vec_s, axis=1)
+                                       - np.sort(s_ref, axis=1)).max())),
+        topk_ms=dict(median=statistics.median(topk_ms), min=min(topk_ms),
+                     shape=[Q3_DOCS, engine.cfg.d_model, len(qv), Q3_K]),
+        ivf=dict(nlist=nlist, build_s=ivf_build_s, search_s=ivf_search_s,
+                 full_probe_ids_exact=full_probe == exact,
+                 full_probe_near_ties=probe_ties,
+                 auto=decision, auto_recall_at_8=recall),
+        engine_steps=engine.steps - steps0, launches=launches,
+        peak_memory_gb=peak / 1e9, wall_s=wall,
+        phase_wall_s=time.perf_counter() - t_phase)
+    store_dir.cleanup()
+
+    check(len(table) == len(Q3_QUESTIONS) * Q3_K
+          and table.column("q")[::Q3_K] == list(Q3_QUESTIONS),
+          f"query3: {len(table)} rows, not {Q3_K} a question")
+    check(first["reports"] == on_mock["reports"]
+          and first["calls"] == on_mock["calls"],
+          f"query3: requests {first}, on MockProvider {on_mock}")
+    check(first["output_tokens"] == PLAN_OUT * (first["calls"] - embeds),
+          f"query3: the rerank generated {first['output_tokens']} tokens")
+    check(second["calls"] == 0 and again.rows() == table.rows(),
+          f"query3: the second collect sent {second['calls']} requests")
+    for name, h in held.items():
+        check(h["ok"], f"query3: a {name} call differs from its plain "
+              f"version: {h}")
+    check(vec_ok, f"query3: vector candidates differ from the plain scan "
+          f"(smallest adjacent score gap {gap:.3g}, tolerance {SCORE_TOL})")
+    check(source == "session", f"query3: the index came from {source}")
+    check(store_source == "store" and _embedded(from_store)
+          == len(Q3_QUESTIONS) and store_table.rows() == table.rows(),
+          f"query3: a fresh session read the index from {store_source} "
+          f"and embedded {_embedded(from_store)} texts")
+    check(grown_source == "appended" and appended == Q3_APPEND
+          and len(grown) == Q3_DOCS + Q3_APPEND
+          and np.array_equal(grown_ids, rebuilt_ids),
+          f"query3: the append came from {grown_source}, embedded "
+          f"{appended} texts")
+    check(probe_ok, "query3: IVF at full probe differs from the exact plan")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the Query 3 path")
     return launches
 
 
@@ -1379,13 +1766,15 @@ def main() -> int:
     compare_embed_plain(provider, docs)
     profile_window(provider)
     plan = plan_path(provider)
+    query3 = query3_path(provider)
     del provider, docs
     free_device("olmo")
     mamba = mamba_path(dev)
     free_device("mamba")
     rgemma = rgemma_path(dev)
 
-    by_path = {"olmo-1b": olmo, "plan": plan, MAMBA: mamba, RGEMMA: rgemma}
+    by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
+               MAMBA: mamba, RGEMMA: rgemma}
     kernels = []
     for row, wide in ((flash, rg_flash), (decode[0], rg_decode[0]),
                       (topk, None), (ssm, None), (rg, None)):

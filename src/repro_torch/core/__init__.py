@@ -6,7 +6,7 @@ seamless optimizations (§2.3): meta-prompting, adaptive batching, caching,
 dedup — plus fusion for hybrid search.  ``LocalTorchProvider`` stands
 where the reference exports ``LocalJaxProvider``; ``ProviderStats`` is
 exported too.  The engine half (``Pipeline``, optimizer, analyzer) is
-still to be ported.
+``repro_torch.engine``.
 """
 
 from .batching import (BatchPlan, BatchStats, ContextOverflowError,

@@ -28,8 +28,11 @@ trading wasted requests — expected waste is predicted from recorded
 selectivity and capped at ``speculate_waste_cap`` x the serial chain's
 request count — for k-1 saved round-trips.
 
-A copy of ``repro/core/functions.py``; its only difference is this
-paragraph.
+A copy of ``repro/core/functions.py``.  Its one difference, besides
+this paragraph: ``SemanticContext`` takes ``device`` (None: the GPU),
+the device on which the vector indexes a plan builds live
+(``retrieval.vector.ensure_index``); a retrieval plan without a GPU
+raises unless the context was given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -93,7 +96,7 @@ class SemanticContext:
                  calibration_path: Optional[str] = None,
                  copack: bool = True,
                  index_path: Optional[str] = None,
-                 objective: str = "latency"):
+                 objective: str = "latency", device=None):
         self.catalog = catalog or Catalog()
         self.provider = provider or MockProvider()
         self.cache = cache or PredictionCache()
@@ -181,6 +184,8 @@ class SemanticContext:
         # unchanged corpus skips re-embedding entirely
         self._index_registry: Dict[Any, Any] = {}
         self._index_lock = threading.Lock()
+        # where a built index lives (None: the GPU)
+        self.device = device
         if index_path is None and self.cache.persist_path is not None:
             index_path = str(self.cache.persist_path) + ".index.json"
         self.index_store = IndexStore(index_path) if index_path else None

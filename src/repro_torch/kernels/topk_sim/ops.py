@@ -94,7 +94,11 @@ def topk_sim(corpus, queries, k: int, *, block_n: int = 64):
         [torch.ones((Q, 1), dtype=torch.bool, device=corpus.device),
          rows[:, 1:] != rows[:, :-1]], dim=1)
     cand = cn[rows]                                         # (Q, kb*bn, D)
-    s = torch.einsum("qd,qnd->qn", qn.to(F32), cand.to(F32))
+    # a product and a sum over D, not a batched matrix-vector product: a
+    # document's score must not depend on how many candidates there are
+    # (the optimizer's corpus pruning relies on it, and a batched product
+    # on the CPU sums in an order that follows the candidate count)
+    s = (cand.to(F32) * qn.to(F32)[:, None, :]).sum(dim=-1)
     s = s.masked_fill(~first, float("-inf"))
     # (score desc, id asc): a stable sort keeps tied candidates in id order
     top_s, at = torch.sort(s, dim=1, descending=True, stable=True)

@@ -1,1 +1,3 @@
-from .vector import VectorIndex, cosine_topk
+from .bm25 import BM25Index, tokenize
+from .ivf import IVFIndex
+from .vector import VectorIndex, cosine_topk, ensure_index

@@ -9,7 +9,9 @@ Tolerances are the kernel tolerances of ``tests/test_kernels.py``: 2e-5
 in f32 and 2e-2 in bf16 (one bf16 rounding of the output), five times
 those for the selective scan and the RG-LRU recurrence (their tests
 there), top-k ids exact: ties rank by id ascending, as the reference's
-retrieval operators order them.
+retrieval operators order them.  The last case drives the retrieval
+layer's full-ranking branch (a plan's masked ``corpus_filter``) at the
+Query 3 phase's corpus shape.
 """
 
 import numpy as np
@@ -28,6 +30,9 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.topk_sim import ops as topk_ops
 from repro_torch.kernels.topk_sim.ref import (block_max_scores_ref,
                                               topk_sim_ref)
+import repro_torch.core as core
+import repro_torch.engine as engine
+import repro_torch.retrieval as retrieval
 
 pytestmark = pytest.mark.gpu
 
@@ -382,3 +387,46 @@ def test_rg_lru_rejects_bad_input(cuda):
         rglru_ops.rg_lru(a.transpose(0, 1), a.transpose(0, 1))
     with pytest.raises(ValueError):                 # a CPU tensor
         rglru_ops.rg_lru(a, a.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the retrieval layer: the full-ranking branch at the Query 3 phase's shape
+# ---------------------------------------------------------------------------
+def test_full_ranking_branch_on_the_card(cuda):
+    """The masked, unpruned ``corpus_filter`` plan ranks the whole corpus
+    (``VectorIndex.topk`` with k = N) and masks it: at 16,384 x 2048 its
+    ids equal the plain scan's (``cosine_topk``) over the same index, its
+    scores within 1e-5.  Prints the peak device memory of the collect."""
+    n, dim, k = 16_384, 2048, 8
+    emb = {"model": "e", "embedding_dim": dim, "context_window": 1 << 20}
+    corpus = engine.Table({"id": list(range(n)),
+                           "content": [f"passage {i} on topic {i % 97}"
+                                       for i in range(n)]})
+    qs = engine.Table({"q": ["topic 3", "topic 41", "passage 77", "ann"]})
+    keep = lambda r: r["id"] % 3 != 0
+    ctx = core.SemanticContext(provider=core.MockProvider())
+    pipe = engine.Pipeline(ctx, qs, "q").vector_topk(
+        "s", emb, "q", corpus, k=k, doc_col="content", corpus_filter=keep,
+        corpus_filter_cols=["id"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = topk_ops.block_max_scores.launches
+    t = pipe.collect(optimize=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert topk_ops.block_max_scores.launches == before + 1
+    index = next(iter(ctx._index_registry.values()))
+    assert len(index) == n and index.device.type == "cuda"
+    qv = core.llm_embedding(ctx, emb, qs.column("q"))
+    s, i = retrieval.cosine_topk(index.vectors,
+                                 torch.from_numpy(qv).to(cuda), n)
+    expect, scores = [], []
+    for r in range(len(qv)):
+        ids = [int(x) for x in i[r].tolist() if x % 3 != 0][:k]
+        expect += ids
+        scores += [float(s[r, int((i[r] == x).nonzero())]) for x in ids]
+    assert t.column("id") == expect
+    np.testing.assert_allclose(t.column("s"), scores, atol=1e-5, rtol=0)
+    print(f"full-ranking branch {n} x {dim}, Q {len(qv)}: peak "
+          f"{peak / 2**20:.1f} MiB allocated on "
+          f"{torch.cuda.get_device_name(0)}")
