@@ -17,7 +17,13 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      recurrentgemma-9b: flash attention of 16 query heads over one KV head
      of 256 on its embed batch, decode attention at that width over 4
      slots x 4096 positions with its window of 2048, the RG-LRU recurrence
-     of its embed batch, di=4096, f32), with CUDA-event times of the
+     of its embed batch, di=4096, f32; the dense models of phases 8-10:
+     flash attention of granite-8b's and qwen1.5-32b's 64-text embed batch
+     (32 query heads over 8 KV heads of 128; 40 heads of 128) and of
+     gemma3-12b's 4 texts of 2,048 tokens (16 query heads over 8 KV heads
+     of 256, window 1,024), decode attention at each one's heads over 4
+     slots x 2048 positions, gemma3-12b's past its window), with
+     CUDA-event times of the
      kernel, the plain version and, where one exists, one PyTorch library
      call computing the same function; bounds from the card's peak rates.
      Flash and decode attention and their SDPA yardsticks are timed in
@@ -85,10 +91,28 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      whose logits are held against the plain path in f32 (in bf16 one
      rounding of one attention output already moves them past the
      tolerance at this depth; the script measures that floor);
-  8. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  8. recurrentgemma-9b freed, granite-8b at full width as phase 6 runs
+     falcon-mamba-7b (weights drawn on the card one layer at a time):
+     flash attention in each of its 36 layers per embed request, decode
+     attention in each per decode step; an embed batch and a decode step
+     against the plain versions; each raw request against a fresh engine;
+  9. gemma3-12b the same way (48 layers, 40 of them local with a window of
+     1,024), with a raw request of 1,500 tokens, whose chunked prefill and
+     decode run past the window, and an embed request of 4 texts of
+     1,100-1,500 bytes (bucket 2,048), whose flash calls the window cuts,
+     held against the plain path too;
+  10. qwen1.5-32b the same way (64 layers, 40 heads of 128, qkv bias) on
+     the int8 KV cache of 4 slots x 2,048 tokens, through a
+     ``ServingEngine`` on that cache inside the provider; the device time
+     of its decode steps split into the weight GEMMs, the cache's
+     dequantization and the decode kernel; then, the model freed, a decode
+     step held against the plain path on its configuration cut to 4
+     layers (at 64 the f32 step would not fit beside the weights);
+  11. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
-     falcon-mamba-7b, recurrentgemma-9b), then the card, then the result
-     line.
+     falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
+     qwen1.5-32b; flash and decode attention also with their run keys at
+     each model's shapes), then the card, then the result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -267,13 +291,25 @@ def attention_instances(_build):
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions at main-path shapes
 # --------------------------------------------------------------------------
-def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
-    """Flash attention on a 64-text embed batch of 128 tokens, 16 query
-    heads: olmo-1b's (16 KV heads of 128) by default, recurrentgemma-9b's
-    with ``KH=1, hd=256, window=2048``."""
+def causal_pairs(L: int, window: int = 0) -> int:
+    """(query, key) pairs a causal attention over L positions computes,
+    each query seeing at most ``window`` keys when ``window`` > 0."""
+    if not window or window >= L:
+        return L * (L + 1) // 2
+    return window * (window + 1) // 2 + (L - window) * window
+
+
+def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
+                seed=SEED):
+    """Flash attention on an embed batch: by default olmo-1b's (64 texts of
+    128 tokens, 16 heads of 128); recurrentgemma-9b's with ``KH=1, hd=256,
+    window=2048``; the dense models' of this slice at their head counts
+    (gemma3-12b's with 4 texts of 2048 tokens, where its window of 1024
+    cuts).  SDPA is the yardstick, with an explicit mask where the window
+    cuts."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, L, H, dt = 64, 128, 16, torch.bfloat16
+    dt = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
     k, v = (torch.randn((B, L, KH, hd), generator=g, device=dev).to(dt)
@@ -288,20 +324,31 @@ def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
     err = max_err(out, ref)
     ok = torch.allclose(out.float(), ref.float(), atol=TOLS[dt],
                         rtol=TOLS[dt])
+    del out, ref
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    # a window of at least L masks nothing beyond the causal mask
-    check(window == 0 or window >= L, "SDPA yardstick needs window >= L")
     gqa = {} if KH == H else {"enable_gqa": True}
-    k_ms, lib_ms = time_pairs_ms(
-        kern, lambda: sdpa(qt, kt, vt, is_causal=True, **gqa), flush)
+    cuts = 0 < window < L
+    if cuts:
+        i = torch.arange(L, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+        def lib():
+            return sdpa(qt, kt, vt, attn_mask=mask, **gqa)
+    else:
+        # a window of at least L masks nothing beyond the causal mask
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=True, **gqa)
+    k_ms, lib_ms = time_pairs_ms(kern, lib, flush)
     med, lib_med = statistics.median(k_ms), statistics.median(lib_ms)
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    flops = 4 * B * H * (L * (L + 1) // 2) * hd
+    flops = 4 * B * H * causal_pairs(L, window) * hd
     b_ms, b_by = bound_ms(nbytes, flops, dt)
     shape = (f"q,k,v ({B}, {L}, {H}, {hd}) bf16 causal" if KH == H else
              f"q ({B}, {L}, {H}, {hd}), k,v ({B}, {L}, {KH}, {hd}) bf16 "
-             f"causal, window {window}")
+             f"causal")
+    if window:
+        shape += f", window {window}"
     row = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -311,7 +358,7 @@ def check_flash(dev, flush, KH=16, hd=128, window=0, seed=SEED):
         ms=med, ms_min=min(k_ms), plain_ms=time_ms(plain, flush, iters=5),
         library_ms=lib_med, library_ms_min=min(lib_ms),
         library="F.scaled_dot_product_attention"
-        + ("" if KH == H else "(enable_gqa)"),
+        + ("(mask" if cuts else "(") + (", enable_gqa)" if gqa else ")"),
         timed_pairs=len(k_ms), ratio_to_library=med / lib_med,
         ratio_to_library_min=min(k_ms) / min(lib_ms),
         bound_ms=b_ms, bound_by=b_by)
@@ -369,17 +416,18 @@ def device_times_ms(fn, flush, calls=20):
             sorted({name for ks in per_call for _, name in ks}))
 
 
-def check_decode(dev, flush, S=2048, KH=16, hd=128,
+def check_decode(dev, flush, S=2048, H=16, KH=16, hd=128,
                  positions=(1900, 1024, 300, 37), windows=(0, 512),
                  seed=SEED + 1):
-    """Decode attention over 4 slots, 16 query heads: olmo-1b's (16 KV
-    heads of 128, a 2048-slot cache) by default, recurrentgemma-9b's with
-    ``KH=1, hd=256`` and positions past its window of 2048.  The kernel and
-    masked SDPA are timed in 50 interleaved pairs (CUDA events around each
-    call) and by their device time (the kernels one call launches)."""
+    """Decode attention over 4 slots: olmo-1b's (16 query and 16 KV heads
+    of 128, a 2048-slot cache) by default, recurrentgemma-9b's with
+    ``KH=1, hd=256`` and positions past its window of 2048, the dense
+    models of this slice at their head counts.  The kernel and masked SDPA
+    are timed in 50 interleaved pairs (CUDA events around each call) and
+    by their device time (the kernels one call launches)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    B, H, dt = 4, 16, torch.bfloat16
+    B, dt = 4, torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dt)
     kc, vc = (torch.randn((B, S, KH, hd), generator=g, device=dev).to(dt)
@@ -456,6 +504,30 @@ def check_decode_rows(dev, flush):
                       positions=(4000, 2500, 2100, 37), windows=(2048,),
                       seed=SEED + 8)
     return olmo + short, rg
+
+
+# the dense models of phases 8-10 at their served widths: (flash attention
+# of an embed request, decode attention over the engine's 4 x 2048 cache)
+DENSE_SHAPES = {
+    "granite-8b": (dict(H=32, KH=8, hd=128),
+                   dict(H=32, KH=8, hd=128, windows=(0,))),
+    # a 4-text request of 2,048 tokens, where the window of 1,024 cuts (at
+    # 64 texts the plain version's f32 scores alone would take 17 GB);
+    # decode positions past the window
+    "gemma3-12b": (dict(B=4, L=2048, H=16, KH=8, hd=256, window=1024),
+                   dict(H=16, KH=8, hd=256, windows=(1024,),
+                        positions=(2000, 1500, 1100, 37))),
+    "qwen1.5-32b": (dict(H=40, KH=40, hd=128),
+                    dict(H=40, KH=40, hd=128, windows=(0,))),
+}
+
+
+def check_dense_rows(dev, flush):
+    """Phase 2's flash and decode rows at the shapes of phases 8-10:
+    {arch: (flash row, decode row)}."""
+    return {arch: (check_flash(dev, flush, seed=SEED + 10 + i, **fl),
+                   check_decode(dev, flush, seed=SEED + 20 + i, **dec)[0])
+            for i, (arch, (fl, dec)) in enumerate(DENSE_SHAPES.items())}
 
 
 def check_topk(dev, flush):
@@ -721,15 +793,25 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def compare_decode_rounding(engine, prefix):
+def _f32_layer(tree, r):
+    """Repeat ``r`` of a stacked stage tree with its floating leaves cast
+    to f32 (copies; int8 cache values stay int8): patched over the model's
+    ``_index``, a step casts each layer's weights and cache as it reaches
+    that layer, so no f32 copy of the whole stack is ever resident."""
+    return _map(lambda t: t[r].float() if t.is_floating_point() else t[r],
+                tree)
+
+
+def compare_decode_rounding(engine, prefix, **note):
     """One full-width decode step from the engine's cache (cloned: the step
     writes in place) against the plain path.  Over a random-weight stack
     one bf16 ulp in one attention output moves the bf16 logits by more
     than LOGITS_TOL (logged as the one-ulp noise floor), so at bf16 the
     step holds each of its decode-attention calls against the plain
     version on the same inputs (TOLS), and the logits are held at
-    LOGITS_TOL in the same step in f32 (weights and cache cast to f32, the
-    kernel's f32 instance), where rounding stays far below it."""
+    LOGITS_TOL in the same step in f32 (weights and cache cast to f32 a
+    layer at a time, the kernel's f32 instance), where rounding stays far
+    below it.  ``note`` is logged with the result (a cut of the model)."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -766,15 +848,17 @@ def compare_decode_rounding(engine, prefix):
     kern, plain = step(held, *args), step(decode_attention_ref, *args)
     floor = max_err(step(one_ulp, *args), plain)
     f32 = engine.cfg.replace(param_dtype="float32", compute_dtype="float32")
-    args32 = (f32, _map(torch.Tensor.float, engine.params),
-              _map(torch.Tensor.float, engine.cache))
-    kern32 = step(kernel, *args32)
-    plain32 = step(decode_attention_ref, *args32)
-    del args32
+    # the embedding, final norm and head whole; each layer as it is reached
+    params32 = {k: v if k == "stages" else _map(torch.Tensor.float, v)
+                for k, v in engine.params.items()}
+    with mock.patch.object(M, "_index", _f32_layer):
+        kern32 = step(kernel, f32, params32, engine.cache)
+        plain32 = step(decode_attention_ref, f32, params32, engine.cache)
+    del params32
     torch.cuda.empty_cache()
     err32 = max_err(kern32, plain32)
     ok32 = torch.allclose(kern32, plain32, atol=LOGITS_TOL, rtol=LOGITS_TOL)
-    log(phase=f"{prefix}decode_step_vs_plain", logits=list(kern.shape),
+    log(phase=f"{prefix}decode_step_vs_plain", **note, logits=list(kern.shape),
         pos=pos.tolist(), bf16_calls=len(calls),
         bf16_call_max_abs_err=[e for e, _ in calls],
         bf16_calls_ok=all(ok for _, ok in calls),
@@ -1548,18 +1632,29 @@ def _layer_counts(cfg) -> dict:
     return {k: kinds.count(k) for k in set(kinds)}
 
 
-def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
+def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
+               kv_quant="none", long_prompt=0, long_texts=0,
+               decode_check=True, after_traffic=None):
     """Serve ``arch`` at full width through the same entry points as the
     main path: one 64-passage embed request, a question request, a
     device-resident index and top-5, 2 RAG completions, 5 raw requests on
     4 slots.  ``counts`` are the kernel wrappers of this path, set to 0
     just before it and read just after; each must equal its launches per
     embed request (``per_embed``) or per decode step (``per_decode``)
-    times the requests or steps of this run.  Then each raw request is
-    served again alone in a fresh engine (a reused slot must not carry its
-    last occupant's state), and an embed batch and, where decode runs a
-    kernel, a decode step go through the kernels against the plain
-    versions."""
+    times the requests or steps of this run.  An embed batch and, where
+    decode runs a kernel and ``decode_check`` is set, a decode step go
+    through the kernels against the plain versions; then the phase's
+    engine is freed and each raw request is served again alone in a fresh
+    engine (a reused slot must not carry its last occupant's state).
+
+    ``kv_quant="int8"`` serves on the int8 KV cache: neither local
+    provider takes a cache format, so the provider's engine is replaced by
+    ``ServingEngine(cfg, params=...)`` on that cache, as the parity tests
+    replace it.  ``long_prompt`` adds a sixth raw request of that many
+    tokens; ``long_texts`` adds an embed request of that many texts of
+    1,100-1,500 bytes (bucket 2,048), also held against the plain path.
+    ``after_traffic(engine)`` runs after the checks of the traffic, before
+    the engine is freed.  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.core import (LocalTorchProvider, ModelResource,
                                   build_metaprompt)
@@ -1568,7 +1663,7 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
     from repro_torch.retrieval import VectorIndex
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(kv_quant=kv_quant)
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -1582,14 +1677,22 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
                       for t in _tensors(params)) / 1e9,
         seconds=time.perf_counter() - t_phase,
         init_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    provider = LocalTorchProvider(arch, use_smoke_config=False, device=dev,
-                                  params=params)
+    if kv_quant == "none":
+        provider = LocalTorchProvider(arch, use_smoke_config=False,
+                                      device=dev, params=params)
+    else:
+        provider = LocalTorchProvider(arch, device=dev)
+        provider.engine = ServingEngine(cfg, device=dev, params=params)
     engine = provider.engine
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in _tensors(engine.cache)) / 1e9
     rng = np.random.default_rng(seed)
     docs = passages(rng, 64, 90, 129)           # one request, bucket 128
     questions = passages(rng, 4, 30, 60)
     emb_model = ModelResource(f"{prefix}embed", 1, arch)
     gen_model = ModelResource(f"{prefix}gen", 1, arch, max_output_tokens=8)
+    long_rng = np.random.default_rng(seed + 100)
+    longs = passages(long_rng, long_texts, 1100, 1501)
 
     for fn in counts.values():
         fn.launches = 0
@@ -1601,6 +1704,9 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
         index = VectorIndex(doc_vecs, device=dev)
         q_vecs = provider.embed(emb_model, questions)
         embed_requests = 2
+        if longs:
+            long_vecs = provider.embed(emb_model, longs)
+            embed_requests += 1
         scores, ids = index.topk(q_vecs, k=5)
         answers, new_tokens = [], []
         for qi in range(2):
@@ -1614,18 +1720,26 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
         # 5 raw requests on 4 slots: the fifth takes a freed slot
         prompts = [[int(t) for t in rng.integers(0, 256, n)]
                    for n in rng.integers(40, 120, 5)]
+        if long_prompt:
+            prompts.append([int(t) for t in
+                            long_rng.integers(0, 256, long_prompt)])
         raw = [engine.submit(p, max_new_tokens=8) for p in prompts]
         engine.run_until_idle()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counts.items()}
     decode_steps = dec.call_count
+    dec.reset_mock()            # its recorded calls hold the engine's cache
     peak = torch.cuda.max_memory_allocated()
 
     check(doc_vecs.shape == (64, cfg.d_model)
           and np.isfinite(doc_vecs).all()
           and np.allclose(np.linalg.norm(doc_vecs, axis=1), 1.0, atol=1e-3),
           f"{arch} corpus embeddings are finite unit vectors")
+    if longs:
+        check(long_vecs.shape == (len(longs), cfg.d_model)
+              and np.isfinite(long_vecs).all(),
+              f"{arch} long-text embeddings are finite")
     check(ids.shape == (4, 5) and (0 <= ids).all() and (ids < 64).all()
           and np.all(np.diff(scores, axis=1) <= 1e-6),
           f"{arch} top-5 ids in range, scores descending")
@@ -1640,10 +1754,14 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
         check(n > 0 and n == expected[name],
               f"{arch}: {name} launched {n} times, not {expected[name]}")
     stats = provider.stats.snapshot()
-    log(phase=f"{prefix}path", arch=cfg.name, embed_requests=embed_requests,
-        embed_texts=len(docs) + len(questions), completions=len(answers),
-        raw_requests=len(raw), slots=engine.n_slots,
-        raw_slots=[r.slot for r in raw],
+    log(phase=f"{prefix}path", arch=cfg.name, kv_quant=kv_quant,
+        embed_requests=embed_requests,
+        embed_texts=len(docs) + len(questions) + len(longs),
+        long_text_bytes=[len(t) for t in longs],
+        completions=len(answers), raw_requests=len(raw),
+        slots=engine.n_slots, max_context=engine.max_context,
+        cache_gb=cache_gb, raw_slots=[r.slot for r in raw],
+        raw_prompt_tokens=[len(p) for p in prompts],
         prompt_tokens=stats["prompt_tokens"] + sum(map(len, prompts)),
         generated_tokens=stats["output_tokens"]
         + sum(len(r.generated) for r in raw),
@@ -1652,24 +1770,34 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed):
         launches_per_embed_request=per_embed,
         launches_per_decode_step=per_decode)
 
+    compare_embed_plain(provider, docs, prefix)
+    if longs:
+        compare_embed_plain(provider, longs, f"{prefix}long_")
+    if per_decode and decode_check:
+        compare_decode_rounding(engine, prefix)
+    if after_traffic is not None:
+        after_traffic(engine)
+    # the phase's engine and its cache go before the fresh engines come
+    slots, context = engine.n_slots, engine.max_context
+    del provider, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # each raw request against itself served alone from a fresh state
     t1 = time.perf_counter()
     alone = []
+    torch.cuda.reset_peak_memory_stats()
     for p in prompts:
-        fresh = ServingEngine(cfg, n_slots=engine.n_slots,
-                              max_context=engine.max_context, device=dev,
-                              params=params)
+        fresh = ServingEngine(cfg, n_slots=slots, max_context=context,
+                              device=dev, params=params)
         alone.append(fresh.generate(p, max_new_tokens=8))
         del fresh
     same = [r.generated == a for r, a in zip(raw, alone)]
     log(phase=f"{prefix}reused_slots", same_as_alone=same,
-        fifth_request_slot=raw[4].slot, seconds=time.perf_counter() - t1)
+        fifth_request_slot=raw[4].slot, seconds=time.perf_counter() - t1,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(all(same), f"{arch}: a request in a reused slot differs from its "
           f"run from a fresh state: {same}")
-
-    compare_embed_plain(provider, docs, prefix)
-    if per_decode:
-        compare_decode_rounding(engine, prefix)
     log(phase=f"{prefix}phase", wall_s=time.perf_counter() - t_phase)
     return launches
 
@@ -1700,6 +1828,163 @@ def rgemma_path(dev):
          "decode_attention": decode_attention},
         {"rg_lru": n["rec"], "flash_attention": n["local"]},
         {"decode_attention": n["local"]}, SEED + 9)
+
+
+# --------------------------------------------------------------------------
+# phases 8-10: the dense models of the JAX package at full width
+# --------------------------------------------------------------------------
+GRANITE, GEMMA3, QWEN = "granite-8b", "gemma3-12b", "qwen1.5-32b"
+GEMMA3_LONG_PROMPT = 1500        # past gemma3-12b's window of 1,024
+GEMMA3_LONG_TEXTS = 4            # one embed request at bucket 2,048
+QWEN_CUT_LAYERS = 4
+
+
+def _attention_counts():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention}
+
+
+def dense_path(dev, arch, prefix, seed, **kw):
+    """A dense model through ``serve_path``: flash attention once per layer
+    and embed request, decode attention once per layer and decode step."""
+    from repro_torch.configs import get_config
+    n = get_config(arch).num_layers
+    return serve_path(dev, arch, prefix, _attention_counts(),
+                      {"flash_attention": n}, {"decode_attention": n}, seed,
+                      **kw)
+
+
+def decode_split(engine, steps=3):
+    """Device time of ``steps`` engine steps with every slot decoding, on
+    the int8 cache, from ``torch.profiler`` (host and device activity):
+    the weight GEMMs (kernels by name, as phase 5 groups them), the
+    dequantization of the cache (the kernels launched under a
+    ``dequantize_kv`` annotation wrapped around each call), the decode
+    kernel, and the rest; with the idle share of the window.  The
+    dequantization of one layer's cache is also timed alone with CUDA
+    events, times the layers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(SEED + 30)
+    reqs = [engine.submit([int(t) for t in rng.integers(0, 256, 40)],
+                          max_new_tokens=steps + 4)
+            for _ in range(engine.n_slots)]
+    while any(r.pending_prompt or r.slot < 0 for r in reqs):
+        engine.step()
+    dequantize = L.dequantize_kv
+
+    def marked(*args, **kw):
+        with record_function("dequantize_kv"):
+            return dequantize(*args, **kw)
+    torch.cuda.synchronize()
+    with mock.patch.object(L, "dequantize_kv", marked), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    engine.run_until_idle()
+    check(all(len(r.generated) == steps + 4 for r in reqs),
+          "decode_split: the traced requests did not finish")
+    events = prof.events()
+    kernels = [(e.device_time_total, e.name) for e in events
+               if e.device_type == DeviceType.CUDA
+               and e.name != "dequantize_kv"]
+    deq_us = sum(e.device_time_total for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name == "dequantize_kv")
+    n_deq = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name == "dequantize_kv")
+    groups = {"matmul": 0.0, "decode_attention": 0.0}
+    for us, name in kernels:
+        if "decode_mma_kernel" in name:
+            groups["decode_attention"] += us / 1e3
+        elif any(m in name for m in dict(KERNEL_GROUPS)["matmul"]):
+            groups["matmul"] += us / 1e3
+    busy = sum(us for us, _ in kernels) / 1e3
+    groups["dequantize_kv"] = deq_us / 1e3
+    groups["other"] = busy - sum(groups.values())
+    # one layer's cache dequantized alone, as cache_kv does it
+    layer = {k: t[0] for k, t in engine.cache[0]["b0"]["attn"].items()}
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=engine.device)
+    alone_ms = time_ms(lambda: L.cache_kv(engine.cfg, layer), flush)
+    row = dict(phase="qwen_decode_split", engine_steps=steps,
+               slots=engine.n_slots, wall_ms_per_step=wall * 1e3 / steps,
+               device_busy_ms_per_step=busy / steps,
+               device_idle_share=1 - busy / (wall * 1e3),
+               device_ms_per_step={k: v / steps for k, v in groups.items()},
+               dequantize_calls_per_step=n_deq / steps,
+               dequantize_alone_ms_per_layer=alone_ms,
+               dequantize_alone_ms_per_step=alone_ms * engine.cfg.num_layers,
+               dequantize_bytes_per_layer=sum(
+                   t.numel() * t.element_size() for t in layer.values())
+               + 2 * layer["k"].numel() * 2)
+    log(**row)
+    check(groups["decode_attention"] > 0 and groups["matmul"] > 0,
+          f"decode_split: the trace holds no decode kernel or GEMM: {row}")
+    return row
+
+
+def qwen_cut_check(dev):
+    """qwen1.5-32b's decode step held against the plain path on its
+    configuration cut to 4 layers (the same widths, the int8 cache, its own
+    drawn weights): at 64 layers the f32 step's embedding and head and a
+    clone of the cache would not fit beside the weights.  The cache is
+    first filled by two requests of 1,600 and 800 tokens, whose chunked
+    prefill runs on int8."""
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config(QWEN).replace(kv_quant="int8",
+                                   num_layers=QWEN_CUT_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    engine = ServingEngine(cfg, device=dev, params=params)
+    rng = np.random.default_rng(SEED + 31)
+    reqs = [engine.submit([int(t) for t in rng.integers(0, 256, n)],
+                          max_new_tokens=4) for n in (1600, 800)]
+    engine.run_until_idle()
+    check(all(len(r.generated) == 4 for r in reqs),
+          "qwen cut: the requests that fill the cache did not finish")
+    compare_decode_rounding(
+        engine, "qwen_cut_", cut=f"{QWEN_CUT_LAYERS} of 64 layers",
+        kv_quant="int8", weight_gb=sum(t.numel() * t.element_size()
+                                       for t in _tensors(params)) / 1e9,
+        prefill_tokens=[len(r.prompt) for r in reqs])
+
+
+def granite_path(dev):
+    """Phase 8: granite-8b (36 layers, 32 query heads over 8 KV heads of
+    128)."""
+    return dense_path(dev, GRANITE, "granite_", SEED + 11)
+
+
+def gemma3_path(dev):
+    """Phase 9: gemma3-12b (48 layers, 5 local of window 1,024 to 1 global,
+    16 query heads over 8 KV heads of 256), with a request of 1,500
+    tokens (chunked prefill and decode past the window) and an embed
+    request of 4 texts at bucket 2,048 (the window cuts the flash
+    kernel's rows)."""
+    return dense_path(dev, GEMMA3, "gemma3_", SEED + 12,
+                      long_prompt=GEMMA3_LONG_PROMPT,
+                      long_texts=GEMMA3_LONG_TEXTS)
+
+
+def qwen_path(dev):
+    """Phase 10: qwen1.5-32b (64 layers, 40 heads of 128, qkv bias) at full
+    width on the int8 KV cache of 4 slots x 2,048 tokens; the decode
+    step's device split; then, the model freed, the decode step held on
+    the 4-layer cut."""
+    launches = dense_path(dev, QWEN, "qwen_", SEED + 13, kv_quant="int8",
+                          decode_check=False, after_traffic=decode_split)
+    free_device("qwen")
+    qwen_cut_check(dev)
+    return launches
 
 
 def _tensors(tree):
@@ -1755,9 +2040,11 @@ def main() -> int:
     rg_flash = check_flash(dev, flush, KH=1, hd=256, window=2048,
                            seed=SEED + 7)
     rg = check_rg_lru(dev, flush)
+    dense = check_dense_rows(dev, flush)
     del flush
     torch.cuda.empty_cache()
-    for row in (flash, *decode, topk, ssm, rg_flash, *rg_decode, rg):
+    for row in (flash, *decode, topk, ssm, rg_flash, *rg_decode, rg,
+                *(r for rows in dense.values() for r in rows)):
         check(row["ok"], f"{row['name']} disagrees with its plain version "
               f"({row['shape']})")
 
@@ -1772,18 +2059,29 @@ def main() -> int:
     mamba = mamba_path(dev)
     free_device("mamba")
     rgemma = rgemma_path(dev)
+    free_device("rgemma")
+    granite = granite_path(dev)
+    free_device("granite")
+    gemma3 = gemma3_path(dev)
+    free_device("gemma3")
+    qwen = qwen_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
-               MAMBA: mamba, RGEMMA: rgemma}
+               MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
+               GEMMA3: gemma3, QWEN: qwen}
+    # the same kernel at other paths' shapes, by path
+    wider = {"flash_attention": {RGEMMA: rg_flash, **{
+                 arch: rows[0] for arch, rows in dense.items()}},
+             "decode_attention": {RGEMMA: rg_decode[0], **{
+                 arch: rows[1] for arch, rows in dense.items()}}}
     kernels = []
-    for row, wide in ((flash, rg_flash), (decode[0], rg_decode[0]),
-                      (topk, None), (ssm, None), (rg, None)):
+    for row in (flash, decode[0], topk, ssm, rg):
         name = row["name"]
         paths = {p: n[name] for p, n in by_path.items() if name in n}
         entry = dict({k: row[k] for k in KERNEL_ID_KEYS}, **run_keys(row),
                      launches=sum(paths.values()), launches_by_path=paths)
-        if wide is not None:        # the same kernel at this path's shapes
-            entry[RGEMMA] = run_keys(wide)
+        for path, wide in wider.get(name, {}).items():
+            entry[path] = dict(run_keys(wide), shape=wide["shape"])
         kernels.append(entry)
     log(phase="total", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

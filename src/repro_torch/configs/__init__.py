@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config(arch)`` / ``list_archs()``.
 
-olmo-1b, falcon-mamba-7b and recurrentgemma-9b are ported so far; the
-other architectures of the JAX package raise a ``KeyError`` that says so
-(ROADMAP.md, queue A).
+olmo-1b, falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b and
+qwen1.5-32b are ported so far; the other architectures of the JAX package
+raise a ``KeyError`` that says so (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -13,12 +13,14 @@ _ARCHS = {
     "olmo-1b": "olmo_1b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "granite-8b": "granite_8b",
+    "gemma3-12b": "gemma3_12b",
+    "qwen1.5-32b": "qwen15_32b",
 }
 
 # architectures of the JAX package that the port does not serve yet
 NOT_YET_PORTED = (
-    "whisper-base", "phi-3-vision-4.2b", "mixtral-8x7b",
-    "deepseek-moe-16b", "granite-8b", "qwen1.5-32b", "gemma3-12b",
+    "whisper-base", "phi-3-vision-4.2b", "mixtral-8x7b", "deepseek-moe-16b",
 )
 
 

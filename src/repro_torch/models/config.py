@@ -2,8 +2,8 @@
 ``repro/models/config.py``).
 
 The same frozen dataclass and field names as the JAX package, for the
-fields the dense decoder, the Mamba-1 block and the RG-LRU block read and
-the features the port still refuses.
+fields the dense decoder, the Mamba-1 block, the RG-LRU block and the
+int8 KV cache read and the features the port still refuses.
 Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
 ``remat*``, ``ssm_fuse``, cost-probe overrides, sharding padding) are
 dropped: the port picks its kernels by the device a tensor lives on, not
@@ -27,6 +27,7 @@ import torch
 
 ATTN_KINDS = ("attn", "local", "swa", "global")
 PORTED_KINDS = ATTN_KINDS + ("mamba", "rec")
+KV_QUANTS = ("none", "int8")
 
 
 @dataclass(frozen=True)
@@ -62,7 +63,8 @@ class ModelConfig:
     num_experts: int = 0
     is_encoder_decoder: bool = False
     frontend: str = ""               # "" | "audio" | "vision"
-    kv_quant: str = "none"           # none | int8
+    # ---- KV cache ----
+    kv_quant: str = "none"           # none | int8 (quantized KV cache)
     # ---- numerics ----
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -142,7 +144,7 @@ def check_supported(cfg: ModelConfig):
         missing.append("encoder-decoder cross-attention")
     if cfg.frontend:
         missing.append(f"{cfg.frontend} frontend")
-    if cfg.kv_quant != "none":
+    if cfg.kv_quant not in KV_QUANTS:
         missing.append(f"kv_quant={cfg.kv_quant!r}")
     for kind in cfg.pattern:
         if kind not in PORTED_KINDS:

@@ -15,9 +15,10 @@ Mamba and RG-LRU prefill and decode have no kernel in the JAX package
 either and stay plain PyTorch here.
 
 bf16 rounds where the JAX package rounds: norms and rope in f32 and cast
-back, projections as bf16 products, the scans in f32.  MoE,
-cross-attention and the int8 KV cache are not ported yet
-(``config.check_supported``).
+back, projections as bf16 products, the scans in f32.  The int8 KV cache
+(``kv_quant="int8"``) quantizes keys and values per (token, head) and
+dequantizes the cache before attention reads it, as the JAX package does.
+MoE and cross-attention are not ported yet (``config.check_supported``).
 """
 
 from __future__ import annotations
@@ -179,8 +180,19 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
 # attention block (proj + rope + residual-ready output)
 # --------------------------------------------------------------------------
 def normal_init(shape, std, dtype, generator, device):
-    x = torch.randn(shape, generator=generator, dtype=F32, device=device)
-    return x.mul_(std).to(dtype)
+    """N(0, 1) scaled by ``std``, drawn in f32 and cast to ``dtype``.  A
+    tensor of more than two axes is stacked over layers (its leading axis)
+    and is drawn one layer at a time into the result, so the f32 temporary
+    is one layer's, not the stack's; a matrix (the embedding, the head) is
+    drawn whole."""
+    if len(shape) <= 2:
+        x = torch.randn(shape, generator=generator, dtype=F32, device=device)
+        return x.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=generator, dtype=F32,
+                             device=device).mul_(std)
+    return out
 
 
 def init_attention(cfg: ModelConfig, generator, lead=(), device=None):
@@ -247,22 +259,65 @@ def self_attention_train(cfg: ModelConfig, p, x, kind: str, positions,
     return attn_out(p, o), (k, v)
 
 
-def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos):
-    """x: (B, 1, d). cache: {"k","v"}: (B, Smax, KH, hd). Returns (y, cache).
+def quantize_kv(x):
+    """Symmetric int8 per-(token, head) quantization:
+    x (B, S, KH, hd) -> (int8 values, f32 scales (B, S, KH, 1))."""
+    xf = x.to(F32)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                            1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
 
-    The new K/V are written in place at ``cache[b, pos[b]]``.  (The JAX
-    package rebuilds the whole cache with a masked ``where`` so the write
-    stays local to a sequence-sharded cache; the values written are the
-    same and every other row is left as it was.)
+
+def dequantize_kv(q, scale, dtype):
+    """``(q in f32 * scale)`` rounded to ``dtype``, in one elementwise
+    pass (the product is formed in f32 and rounded as it is stored)."""
+    return torch.mul(q, scale, out=torch.empty(q.shape, dtype=dtype,
+                                               device=q.device))
+
+
+def cache_entries(cfg: ModelConfig, k, v):
+    """What the cache stores for new keys and values: themselves, or on
+    the int8 cache (``kv_quant="int8"``) their int8 values and f32
+    scales."""
+    if cfg.kv_quant != "int8":
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def cache_kv(cfg: ModelConfig, cache):
+    """The keys and values that attention reads from a layer's cache: the
+    cache itself, or the int8 cache dequantized to the compute dtype (the
+    whole cache, as the JAX package does before its decode kernel)."""
+    if cfg.kv_quant != "int8":
+        return cache["k"], cache["v"]
+    dt = cfg.compute_torch_dtype
+    return (dequantize_kv(cache["k"], cache["k_scale"], dt),
+            dequantize_kv(cache["v"], cache["v_scale"], dt))
+
+
+def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos):
+    """x: (B, 1, d). cache: {"k","v"}: (B, Smax, KH, hd), with
+    {"k_scale","v_scale"}: (B, Smax, KH, 1) on the int8 cache.  Returns
+    (y, cache).
+
+    The new K/V are written in place at ``cache[b, pos[b]]`` (on the int8
+    cache quantized, values and scales).  (The JAX package rebuilds the
+    whole cache with a masked ``where`` so the write stays local to a
+    sequence-sharded cache; the values written are the same and every
+    other row is left as it was.)  On the int8 cache the decode kernel
+    reads the cache dequantized to the compute dtype.
     """
     B = x.shape[0]
     pos_b = positions_vector(pos, B, x.device)
     q, k, v = attn_qkv(cfg, p, x, pos_b[:, None], kind)
     rows = torch.arange(B, device=x.device)
     at = pos_b.long()
-    cache["k"][rows, at] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
-    o = decode_ops.decode_attention(q, cache["k"], cache["v"], pos_b,
+    for name, t in cache_entries(cfg, k, v).items():
+        cache[name][rows, at] = t[:, 0].to(cache[name].dtype)
+    k_use, v_use = cache_kv(cfg, cache)
+    o = decode_ops.decode_attention(q, k_use, v_use, pos_b,
                                     window=_window(cfg, kind))
     return attn_out(p, o), cache
 
@@ -272,23 +327,32 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off):
     cache.  x: (B, C, d); off: int, or (B,) — tokens already cached per
     row.  The chunk's K/V are written in place at ``[off, off + C)``
     (positions past the cache are dropped, as in the JAX package, whose
-    gather-select rewrites the whole cache instead)."""
+    gather-select rewrites the whole cache instead).
+
+    On the int8 cache the chunk's K/V are quantized as the decode step
+    quantizes them, values and scales written, and the chunk attends over
+    the dequantized cache, its own keys included: what the decode step
+    computes when it is fed the same tokens one at a time.  (The JAX
+    package's chunked prefill has no int8 path: it casts the chunk to
+    int8 and drops the scales; ``ROADMAP.md``, queue C.)"""
     B, C, _ = x.shape
     off_b = positions_vector(off, B, x.device)
     positions = off_b[:, None] + torch.arange(C, device=x.device)[None, :]
     q, k, v = attn_qkv(cfg, p, x, positions, kind)
     Smax = cache["k"].shape[1]
+    entries = cache_entries(cfg, k, v)
     if isinstance(off, numbers.Integral):
         n = max(0, min(C, Smax - int(off)))
-        cache["k"][:, off:off + n] = k[:, :n].to(cache["k"].dtype)
-        cache["v"][:, off:off + n] = v[:, :n].to(cache["v"].dtype)
+        for name, t in entries.items():
+            cache[name][:, off:off + n] = t[:, :n].to(cache[name].dtype)
     else:
         at = positions.long()
         keep = at < Smax
         rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
-        cache["k"][rows[keep], at[keep]] = k[keep].to(cache["k"].dtype)
-        cache["v"][rows[keep], at[keep]] = v[keep].to(cache["v"].dtype)
-    o = chunked_attention(q, cache["k"], cache["v"], causal=True,
+        for name, t in entries.items():
+            cache[name][rows[keep], at[keep]] = t[keep].to(cache[name].dtype)
+    k_all, v_all = cache_kv(cfg, cache)
+    o = chunked_attention(q, k_all, v_all, causal=True,
                           window=_window(cfg, kind), q_offset=off_b,
                           block_k=cfg.attn_block_k)
     return attn_out(p, o), cache

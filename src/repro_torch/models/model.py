@@ -7,7 +7,8 @@ Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
 along a leading ``repeats`` axis (see ``ModelConfig.stages``).  Where the
 JAX package scans over that axis, the port loops over it.  Caches keep
 the same stage structure: (repeats, B, S, KH, hd) keys and values of an
-attention layer, (repeats, B, cw-1, di) conv and (repeats, B, di, N) ssm
+attention layer (int8, beside f32 (repeats, B, S, KH, 1) ``k_scale`` and
+``v_scale``, when ``kv_quant="int8"``), (repeats, B, cw-1, di) conv and (repeats, B, di, N) ssm
 state of a Mamba layer, (repeats, B, cw-1, di) conv and (repeats, B, di)
 f32 ``h`` of an RG-LRU layer.  Decode and chunked prefill write them in
 place and return them.
@@ -66,7 +67,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                                            positions, causal=causal)
         if mode == "prefill":
             pad = (0, 0, 0, 0, 0, cache_len - k.shape[1])
-            new_attn = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+            new_attn = {name: F.pad(t, pad) for name, t in
+                        L.cache_entries(cfg, k, v).items()}
     x = x + y
     h2 = L.norm_apply(cfg, p.get("ln2", {}), x)
     x = x + L.ffn_apply(cfg, p["ffn"], h2)
@@ -197,6 +199,13 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
             return {"rec": L.init_rglru_cache(cfg, B, dt, (repeats,),
                                               device)}
         shape = (repeats, B, cache_len, KH, hd)
+        if cfg.kv_quant == "int8":
+            scale = (*shape[:-1], 1)
+            return {"attn": {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale, dtype=F32, device=device),
+                "v_scale": torch.zeros(scale, dtype=F32, device=device)}}
         return {"attn": {"k": torch.zeros(shape, dtype=dt, device=device),
                          "v": torch.zeros(shape, dtype=dt, device=device)}}
     return [{f"b{j}": layer_cache(kind, repeats)

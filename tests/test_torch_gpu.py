@@ -84,7 +84,10 @@ def assert_topk_ids_match(ids, ref_ids):
      (2, 77, 16, 1, 256, True, 0),       # G 16, a ragged folded tile
      (1, 1024, 4, 4, 128, True, 0),      # the K/V ring wraps 16 times
      (2, 96, 4, 2, 256, False, 0),       # hd 256, bidirectional
-     (2, 200, 8, 2, 64, True, 8)])       # a window smaller than a tile
+     (2, 200, 8, 2, 64, True, 8),        # a window smaller than a tile
+     (4, 2048, 16, 8, 256, True, 1024),  # gemma3-12b: G 2, the window cuts
+     (64, 128, 32, 8, 128, True, 0),     # granite-8b embed batch: G 4
+     (64, 128, 40, 40, 128, True, 0)])   # qwen1.5-32b embed batch: 40 heads
 def test_flash_attention_kernel(cuda, B, S, H, KH, hd, causal, window,
                                 dtype):
     rng = np.random.default_rng(0)
@@ -135,6 +138,72 @@ def test_decode_attention_kernel_mqa_hd256(cuda, B, S, window, pos, dtype):
     torch.cuda.synchronize()
     assert decode_ops.decode_attention.launches == before + 1
     _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "H,KH,hd,window,pos",
+    [(16, 8, 256, 1024, [2000, 1500, 1100, 37]),   # gemma3-12b, G 2
+     (32, 8, 128, 0, [1900, 1024, 300, 37]),       # granite-8b, G 4
+     (40, 40, 128, 0, [1900, 1024, 300, 37])])     # qwen1.5-32b, 40 heads
+def test_decode_attention_kernel_dense_widths(cuda, H, KH, hd, window, pos,
+                                              dtype):
+    """The dense models' served decode shapes: 4 slots x 2048 positions,
+    gemma3-12b's positions past its window of 1024."""
+    rng = np.random.default_rng(7)
+    q = _t(rng, (4, 1, H, hd), dtype, cuda)
+    kc = _t(rng, (4, 2048, KH, hd), dtype, cuda)
+    vc = _t(rng, (4, 2048, KH, hd), dtype, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = decode_ops.decode_attention.launches
+    out = decode_ops.decode_attention(q, kc, vc, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + 1
+    _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_decode_step_on_the_card(cuda, dtype):
+    """One decode step of qwen1.5-32b's smoke config on the int8 KV cache,
+    on the card: the cache filled by chunked prefill (per-row lengths),
+    the step through the decode kernel, which reads the dequantized cache,
+    against the same step through its plain version.  Logits within 1e-4
+    in f32 and 6e-2 in bf16 (the model tolerances); the kernel launches
+    once a layer."""
+    from unittest import mock
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    cfg = get_smoke_config("qwen1.5-32b").replace(
+        kv_quant="int8", param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    cache = M.init_cache(cfg, 4, 256, cuda)
+    assert cache[0]["b0"]["attn"]["k"].dtype == torch.int8
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for c0 in range(0, 96, 32):
+        toks = torch.randint(0, 256, (4, 32), generator=g, device=cuda)
+        M.prefill_chunk(cfg, params, toks, cache, c0)
+    toks = torch.randint(0, 256, (4, 1), generator=g, device=cuda)
+    pos = torch.tensor([96, 80, 33, 5], dtype=torch.int32, device=cuda)
+
+    def step():
+        clone = [{b: {k: {n: t.clone() for n, t in c.items()}
+                      for k, c in blk.items()} for b, blk in st.items()}
+                 for st in cache]
+        return M.decode_step(cfg, params, toks, clone, pos)[0]
+    before = decode_ops.decode_attention.launches
+    out = step()
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + cfg.num_layers
+    with mock.patch.object(L.decode_ops, "decode_attention",
+                           decode_attention_ref):
+        ref = step()
+    tol = {"float32": 1e-4, "bfloat16": 6e-2}[dtype]
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

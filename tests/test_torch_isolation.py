@@ -76,6 +76,27 @@ def test_entry_points_default_to_cuda(no_cuda):
     assert LocalTorchProvider(device="cpu").engine.device.type == "cpu"
 
 
+def test_not_yet_ported_names_four_archs():
+    from repro_torch.configs import NOT_YET_PORTED, get_config
+    assert NOT_YET_PORTED == ("whisper-base", "phi-3-vision-4.2b",
+                              "mixtral-8x7b", "deepseek-moe-16b")
+    for arch in NOT_YET_PORTED:
+        with pytest.raises(KeyError, match="not yet ported"):
+            get_config(arch)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma3-12b", "qwen1.5-32b"])
+def test_dense_configs_default_to_cuda(no_cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_smoke_config(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg.replace(kv_quant="int8"))
+    assert ServingEngine(cfg, device="cpu").device.type == "cpu"
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""

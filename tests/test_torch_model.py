@@ -86,10 +86,11 @@ def test_config_matches_jax(smoke):
         assert getattr(t, f) == getattr(j, f), f
     assert t.stages() == j.stages()
     assert t.num_params() == j.num_params()
-    assert list_archs() == ["olmo-1b", "falcon-mamba-7b", "recurrentgemma-9b"]
+    assert list_archs() == ["olmo-1b", "falcon-mamba-7b", "recurrentgemma-9b",
+                            "granite-8b", "gemma3-12b", "qwen1.5-32b"]
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma3-12b",
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b",
                                   "whisper-base"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not yet ported"):
