@@ -108,11 +108,25 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      dequantization and the decode kernel; then, the model freed, a decode
      step held against the plain path on its configuration cut to 4
      layers (at 64 the f32 step would not fit beside the weights);
-  11. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  11. qwen1.5-32b freed, deepseek-moe-16b at full width as phase 8 runs
+     granite-8b (28 layers of 16 heads of 128, each with an MoE FFN of 64
+     routed experts top-6 and 2 shared; flash attention 28 times per embed
+     request, decode attention 28 times per decode step), with a wrapper
+     around the MoE layers' routing that sums the dropped assignments by
+     group length (none may drop in a decode group) and logs, in the
+     embed batch and decode step held against the plain path, the tokens
+     whose top-k experts differ between the two runs; then layer 0 at
+     full width against an oracle written here, on a decode group of 4
+     tokens, a prefill chunk of 32 and an embed row of 128: in f32 within
+     1e-4, in bf16 within 2e-2, the same drops, the bf16 call repeated
+     bitwise equal; and the device time of 3 decode steps split as in
+     phase 10 (the expert GEMMs read every expert's weights a step);
+  12. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
-     qwen1.5-32b; flash and decode attention also with their run keys at
-     each model's shapes), then the card, then the result line.
+     qwen1.5-32b, deepseek-moe-16b; flash and decode attention also with
+     their run keys at each model's shapes), then the card, then the
+     result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -120,6 +134,7 @@ Exits non-zero, printing no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -132,6 +147,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -802,7 +818,7 @@ def _f32_layer(tree, r):
                 tree)
 
 
-def compare_decode_rounding(engine, prefix, **note):
+def compare_decode_rounding(engine, prefix, routes=None, **note):
     """One full-width decode step from the engine's cache (cloned: the step
     writes in place) against the plain path.  Over a random-weight stack
     one bf16 ulp in one attention output moves the bf16 logits by more
@@ -811,7 +827,10 @@ def compare_decode_rounding(engine, prefix, **note):
     version on the same inputs (TOLS), and the logits are held at
     LOGITS_TOL in the same step in f32 (weights and cache cast to f32 a
     layer at a time, the kernel's f32 instance), where rounding stays far
-    below it.  ``note`` is logged with the result (a cut of the model)."""
+    below it.  ``note`` is logged with the result (a cut of the model).
+    With ``routes`` (a ``MoeRoutes`` in place) the tokens whose top-k
+    experts differ between the kernel and the plain step are logged, in
+    bf16 and in f32, so that a routing flip can be told from a fault."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -821,7 +840,9 @@ def compare_decode_rounding(engine, prefix, **note):
     pos = torch.tensor([1500, 700, 123, 9], dtype=torch.int32, device=dev)
     kernel = L.decode_ops.decode_attention
 
-    def step(fn, cfg, params, cache):
+    def step(fn, cfg, params, cache, label):
+        if routes is not None:
+            routes.begin(label)
         with mock.patch.object(L.decode_ops, "decode_attention", fn):
             return M.decode_step(cfg, params, toks,
                                  _map(torch.clone, cache), pos)[0]
@@ -845,19 +866,26 @@ def compare_decode_rounding(engine, prefix, **note):
     one_ulp.done = False
 
     args = (engine.cfg, engine.params, engine.cache)
-    kern, plain = step(held, *args), step(decode_attention_ref, *args)
-    floor = max_err(step(one_ulp, *args), plain)
+    kern = step(held, *args, "kernel")
+    plain = step(decode_attention_ref, *args, "plain")
+    floor = max_err(step(one_ulp, *args, "one_ulp"), plain)
     f32 = engine.cfg.replace(param_dtype="float32", compute_dtype="float32")
     # the embedding, final norm and head whole; each layer as it is reached
     params32 = {k: v if k == "stages" else _map(torch.Tensor.float, v)
                 for k, v in engine.params.items()}
     with mock.patch.object(M, "_index", _f32_layer):
-        kern32 = step(kernel, f32, params32, engine.cache)
-        plain32 = step(decode_attention_ref, f32, params32, engine.cache)
+        kern32 = step(kernel, f32, params32, engine.cache, "kernel32")
+        plain32 = step(decode_attention_ref, f32, params32, engine.cache,
+                       "plain32")
     del params32
     torch.cuda.empty_cache()
     err32 = max_err(kern32, plain32)
     ok32 = torch.allclose(kern32, plain32, atol=LOGITS_TOL, rtol=LOGITS_TOL)
+    if routes is not None:
+        note["routing_flips_by_layer"] = {
+            "bf16": routes.flips("kernel", "plain"),
+            "f32": routes.flips("kernel32", "plain32")}
+        routes.end()
     log(phase=f"{prefix}decode_step_vs_plain", **note, logits=list(kern.shape),
         pos=pos.tolist(), bf16_calls=len(calls),
         bf16_call_max_abs_err=[e for e, _ in calls],
@@ -876,25 +904,35 @@ def compare_decode_rounding(engine, prefix, **note):
           f"by {err32}")
 
 
-def compare_embed_plain(provider, docs, prefix=""):
+def compare_embed_plain(provider, docs, prefix="", routes=None):
     """One embed batch (the first 64 texts) through the kernels and through
     every full-sequence kernel's plain version (flash attention, the
-    selective scan, the RG-LRU recurrence: whichever the model runs)."""
+    selective scan, the RG-LRU recurrence: whichever the model runs).
+    With ``routes`` (a ``MoeRoutes`` in place) the tokens whose top-k
+    experts differ between the two runs are logged by layer."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rg_lru.ref import rg_lru_ref
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     from repro_torch.models import layers as L
     engine = provider.engine
     tokens = [provider._tokenize(t, engine.cfg.vocab_size) for t in docs[:64]]
+    note = {}
+    if routes is not None:
+        routes.begin("kernel")
     e_kern = engine.embed_batch(tokens)
+    if routes is not None:
+        routes.begin("plain")
     with mock.patch.object(L.flash_ops, "flash_attention", attention_ref), \
             mock.patch.object(L.ssm_ops, "ssm_scan", ssm_scan_ref), \
             mock.patch.object(L.rglru_ops, "rg_lru", rg_lru_ref):
         e_plain = engine.embed_batch(tokens)
+    if routes is not None:
+        note["routing_flips_by_layer"] = routes.flips("kernel", "plain")
+        routes.end()
     cos = float(np.min(np.sum(e_kern * e_plain, axis=1)))
     err = float(np.abs(e_kern - e_plain).max())
     log(phase=f"{prefix}embed_vs_plain", texts=len(tokens), min_cosine=cos,
-        max_abs_err=err)
+        max_abs_err=err, **note)
     check(cos > 0.999, f"{prefix}embeddings differ from the plain path "
           f"(cos {cos})")
 
@@ -1634,7 +1672,8 @@ def _layer_counts(cfg) -> dict:
 
 def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
                kv_quant="none", long_prompt=0, long_texts=0,
-               decode_check=True, after_traffic=None):
+               decode_check=True, after_traffic=None, routes=None,
+               predicted=None):
     """Serve ``arch`` at full width through the same entry points as the
     main path: one 64-passage embed request, a question request, a
     device-resident index and top-5, 2 RAG completions, 5 raw requests on
@@ -1654,7 +1693,12 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
     tokens; ``long_texts`` adds an embed request of that many texts of
     1,100-1,500 bytes (bucket 2,048), also held against the plain path.
     ``after_traffic(engine)`` runs after the checks of the traffic, before
-    the engine is freed.  Returns the launches."""
+    the engine is freed.  ``routes`` (a ``MoeRoutes``) is put in place of
+    the MoE layers' routing for the traffic and the comparisons: the
+    dropped assignments by group length are logged (a decode group must
+    drop none) and the comparisons log routing flips.  ``predicted``
+    (``init_peak_memory_gb``, ``peak_memory_gb``, ``phase_wall_s``) is
+    logged beside the measured values.  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.core import (LocalTorchProvider, ModelResource,
                                   build_metaprompt)
@@ -1664,6 +1708,13 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config(arch).replace(kv_quant=kv_quant)
+    def pred(key):
+        return ({f"predicted_{key}": predicted[key]}
+                if predicted and key in predicted else {})
+
+    def moe_routes():
+        return (routes.active() if routes is not None
+                else contextlib.nullcontext())
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -1676,7 +1727,8 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
         weight_gb=sum(t.numel() * t.element_size()
                       for t in _tensors(params)) / 1e9,
         seconds=time.perf_counter() - t_phase,
-        init_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        init_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **pred("init_peak_memory_gb"))
     if kv_quant == "none":
         provider = LocalTorchProvider(arch, use_smoke_config=False,
                                       device=dev, params=params)
@@ -1699,7 +1751,8 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(M, "decode_step", wraps=M.decode_step) as dec:
+    with moe_routes(), mock.patch.object(M, "decode_step",
+                                         wraps=M.decode_step) as dec:
         doc_vecs = provider.embed(emb_model, docs)
         index = VectorIndex(doc_vecs, device=dev)
         q_vecs = provider.embed(emb_model, questions)
@@ -1731,6 +1784,7 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
     decode_steps = dec.call_count
     dec.reset_mock()            # its recorded calls hold the engine's cache
     peak = torch.cuda.max_memory_allocated()
+    moe = {} if routes is None else {"moe_drops": routes.drops()}
 
     check(doc_vecs.shape == (64, cfg.d_model)
           and np.isfinite(doc_vecs).all()
@@ -1768,13 +1822,18 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
         engine_steps=engine.steps, decode_steps=decode_steps, wall_s=wall,
         peak_memory_gb=peak / 1e9, launches=launches,
         launches_per_embed_request=per_embed,
-        launches_per_decode_step=per_decode)
+        launches_per_decode_step=per_decode, **moe,
+        **pred("peak_memory_gb"))
+    for row in moe.get("moe_drops", []):
+        check(row["group_tokens"] != engine.n_slots or row["dropped"] == 0,
+              f"{arch}: a decode group dropped assignments: {row}")
 
-    compare_embed_plain(provider, docs, prefix)
-    if longs:
-        compare_embed_plain(provider, longs, f"{prefix}long_")
-    if per_decode and decode_check:
-        compare_decode_rounding(engine, prefix)
+    with moe_routes():
+        compare_embed_plain(provider, docs, prefix, routes)
+        if longs:
+            compare_embed_plain(provider, longs, f"{prefix}long_", routes)
+        if per_decode and decode_check:
+            compare_decode_rounding(engine, prefix, routes)
     if after_traffic is not None:
         after_traffic(engine)
     # the phase's engine and its cache go before the fresh engines come
@@ -1798,7 +1857,8 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(all(same), f"{arch}: a request in a reused slot differs from its "
           f"run from a fresh state: {same}")
-    log(phase=f"{prefix}phase", wall_s=time.perf_counter() - t_phase)
+    log(phase=f"{prefix}phase", wall_s=time.perf_counter() - t_phase,
+        **pred("phase_wall_s"))
     return launches
 
 
@@ -1856,15 +1916,16 @@ def dense_path(dev, arch, prefix, seed, **kw):
                       **kw)
 
 
-def decode_split(engine, steps=3):
-    """Device time of ``steps`` engine steps with every slot decoding, on
-    the int8 cache, from ``torch.profiler`` (host and device activity):
-    the weight GEMMs (kernels by name, as phase 5 groups them), the
-    dequantization of the cache (the kernels launched under a
+def decode_split(engine, prefix, steps=3):
+    """Device time of ``steps`` engine steps with every slot decoding,
+    from ``torch.profiler`` (host and device activity): the weight GEMMs
+    (kernels by name, as phase 5 groups them; beside the least time of
+    reading every weight but the embedding once a step), on the int8
+    cache the dequantization of the cache (the kernels launched under a
     ``dequantize_kv`` annotation wrapped around each call), the decode
     kernel, and the rest; with the idle share of the window.  The
     dequantization of one layer's cache is also timed alone with CUDA
-    events, times the layers."""
+    events, times the layers (on the int8 cache)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import layers as L
@@ -1909,24 +1970,33 @@ def decode_split(engine, steps=3):
     busy = sum(us for us, _ in kernels) / 1e3
     groups["dequantize_kv"] = deq_us / 1e3
     groups["other"] = busy - sum(groups.values())
-    # one layer's cache dequantized alone, as cache_kv does it
-    layer = {k: t[0] for k, t in engine.cache[0]["b0"]["attn"].items()}
-    flush = torch.empty(32 << 20, dtype=torch.int32, device=engine.device)
-    alone_ms = time_ms(lambda: L.cache_kv(engine.cfg, layer), flush)
-    row = dict(phase="qwen_decode_split", engine_steps=steps,
+    weight_bytes = sum(t.numel() * t.element_size() for name, tree in
+                       engine.params.items() if name != "embed"
+                       for t in _tensors(tree))
+    row = dict(phase=f"{prefix}decode_split", engine_steps=steps,
                slots=engine.n_slots, wall_ms_per_step=wall * 1e3 / steps,
                device_busy_ms_per_step=busy / steps,
                device_idle_share=1 - busy / (wall * 1e3),
                device_ms_per_step={k: v / steps for k, v in groups.items()},
-               dequantize_calls_per_step=n_deq / steps,
-               dequantize_alone_ms_per_layer=alone_ms,
-               dequantize_alone_ms_per_step=alone_ms * engine.cfg.num_layers,
-               dequantize_bytes_per_layer=sum(
-                   t.numel() * t.element_size() for t in layer.values())
-               + 2 * layer["k"].numel() * 2)
+               weight_read_gb_per_step=weight_bytes / 1e9,
+               weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    if engine.cfg.kv_quant == "int8":
+        # one layer's cache dequantized alone, as cache_kv does it
+        layer = {k: t[0] for k, t in engine.cache[0]["b0"]["attn"].items()}
+        flush = torch.empty(32 << 20, dtype=torch.int32,
+                            device=engine.device)
+        alone_ms = time_ms(lambda: L.cache_kv(engine.cfg, layer), flush)
+        row.update(dequantize_calls_per_step=n_deq / steps,
+                   dequantize_alone_ms_per_layer=alone_ms,
+                   dequantize_alone_ms_per_step=alone_ms
+                   * engine.cfg.num_layers,
+                   dequantize_bytes_per_layer=sum(
+                       t.numel() * t.element_size() for t in layer.values())
+                   + 2 * layer["k"].numel() * 2)
     log(**row)
     check(groups["decode_attention"] > 0 and groups["matmul"] > 0,
-          f"decode_split: the trace holds no decode kernel or GEMM: {row}")
+          f"{prefix}decode_split: the trace holds no decode kernel or GEMM: "
+          f"{row}")
     return row
 
 
@@ -1981,10 +2051,189 @@ def qwen_path(dev):
     step's device split; then, the model freed, the decode step held on
     the 4-layer cut."""
     launches = dense_path(dev, QWEN, "qwen_", SEED + 13, kv_quant="int8",
-                          decode_check=False, after_traffic=decode_split)
+                          decode_check=False,
+                          after_traffic=lambda e: decode_split(e, "qwen_"))
     free_device("qwen")
     qwen_cut_check(dev)
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 11: deepseek-moe-16b, the MoE FFN at full width
+# --------------------------------------------------------------------------
+DEEPSEEK = "deepseek-moe-16b"
+# written in PERF.md before the phase's first run on the card
+DEEPSEEK_PREDICTED = {"init_peak_memory_gb": 34.6,
+                      "peak_memory_gb": [36.0, 37.0],
+                      "phase_wall_s": [30.0, 90.0]}
+# (name, B, S) of the dispatch check's inputs: a decode step's 4 slots
+# (one group of 4 tokens), a prefill chunk of 32, an embed row of 128
+MOE_GROUPS = (("decode", 4, 1), ("prefill_chunk", 1, 32),
+              ("embed_row", 1, 128))
+MOE_F32_TOL = 1e-4
+
+
+class MoeRoutes:
+    """A wrapper around ``moe_route``, the routing and slotting step of
+    every MoE layer's ``moe_apply``, put in place by ``active()``.  It
+    sums, by group length, the groups routed and the assignments they
+    dropped (on the card; read once by ``drops()``), and after
+    ``begin(label)`` keeps each call's top-k experts under that label, so
+    that two runs of one batch can be compared (``flips``)."""
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+        self.layers, self.route = L, L.moe_route
+        self.groups, self.runs, self.current = {}, {}, None
+        self.layer_of = {}      # a layer's router, by address -> its index
+
+    def __call__(self, cfg, router, x):
+        r = self.route(cfg, router, x)
+        G, S = x.shape[:2]
+        layer = self.layer_of.setdefault(router.data_ptr(),
+                                         len(self.layer_of))
+        n = self.groups.setdefault(S, {}).setdefault(layer, [0, 0, 0])
+        n[0] += G
+        n[1] += G * S * cfg.top_k
+        n[2] = r["dropped"].sum() + n[2]
+        if self.current is not None:
+            self.current.append(r["eidx"].sort(dim=-1).values)
+        return r
+
+    def active(self):
+        return mock.patch.object(self.layers, "moe_route", self)
+
+    def begin(self, label: str):
+        self.current = self.runs[label] = []
+
+    def end(self):
+        self.runs, self.current = {}, None
+
+    def flips(self, a: str, b: str) -> list:
+        """Per MoE call of runs ``a`` and ``b``, the tokens whose top-k
+        experts differ."""
+        return [int((x != y).any(dim=-1).sum())
+                for x, y in zip(self.runs[a], self.runs[b])]
+
+    def drops(self) -> list:
+        """Groups (layer calls), assignments and dropped assignments by
+        group length since the last read, and the dropped share by
+        layer."""
+        out = []
+        for S, by_layer in sorted(self.groups.items()):
+            rows = [by_layer[i] for i in sorted(by_layer)]
+            dropped = [int(d) for _, _, d in rows]
+            assigned = sum(a for _, a, _ in rows)
+            out.append({"group_tokens": S, "groups": sum(g for g, _, _ in rows),
+                        "assignments": assigned, "dropped": sum(dropped),
+                        "dropped_share": sum(dropped) / assigned,
+                        "dropped_share_by_layer": [
+                            round(d / a, 4) for d, (_, a, _) in
+                            zip(dropped, rows)]})
+        self.groups = {}
+        return out
+
+
+def moe_oracle(cfg, p, x):
+    """The MoE layer from its definition in f32, apart from the port's
+    dispatch: in each group of x (G, T, d), the (token, choice) pairs in
+    token-major order take a place with their expert while it has fewer
+    than C = moe_capacity(T) takers (a running count per expert); a
+    token's output is the sum of gate * FFN_e(x) over its kept choices
+    (a loop over experts), plus the shared experts' FFN.  Returns
+    (y (G, T, d) f32, dropped per group)."""
+    def ffn(w, v):
+        h = v @ w["w1"].float()
+        h = F.silu(h) if cfg.act == "silu" else F.gelu(h, approximate="tanh")
+        if cfg.glu:
+            h = h * (v @ w["w3"].float())
+        return h @ w["w2"].float()
+
+    G, T, d = x.shape
+    E, K, C = cfg.num_experts, cfg.top_k, cfg.moe_capacity(T)
+    ys, dropped = [], []
+    for g in range(G):
+        v = x[g].float()
+        probs = torch.softmax(v @ p["router"].float(), dim=-1)
+        gate, eidx = torch.topk(probs, K, dim=-1)
+        gate = (gate / gate.sum(dim=-1, keepdim=True)).reshape(-1)
+        choice = eidx.reshape(-1)
+        place = F.one_hot(choice, E).cumsum(dim=0).gather(
+            1, choice[:, None])[:, 0] - 1
+        kept = place < C
+        y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+        for e in range(E):
+            idx = torch.nonzero((choice == e) & kept)[:, 0]
+            if idx.numel():
+                tok = idx // K
+                w = {k: p[k][e] for k in ("w1", "w2", "w3") if k in p}
+                y.index_add_(0, tok, gate[idx, None] * ffn(w, v[tok]))
+        if cfg.num_shared_experts:
+            y = y + ffn(p["shared"], v)
+        ys.append(y)
+        dropped.append(int((~kept).sum()))
+    return torch.stack(ys), dropped
+
+
+def check_moe_dispatch(engine):
+    """Layer 0 of the served model at full width against ``moe_oracle`` on
+    random unit-variance inputs at ``MOE_GROUPS``' shapes: ``moe_apply``
+    with the layer cast to f32 within MOE_F32_TOL, in bf16 within
+    TOLS[bf16]; the dropped assignments equal the oracle's (none in the
+    decode group); the bf16 call repeated is bitwise equal."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg, bf16 = engine.cfg, torch.bfloat16
+    p = M._index(engine.params["stages"][0]["b0"]["moe"], 0)
+    p32 = _map(torch.Tensor.float, p)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=engine.device).manual_seed(SEED + 15)
+    rows = []
+    for name, B, S in MOE_GROUPS:
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device=engine.device).to(bf16)
+        groups = L.moe_groups(x)
+        want, want_dropped = moe_oracle(cfg, p32, groups)
+        want = want.view(B, S, cfg.d_model)
+        y32, _ = L.moe_apply(cfg32, p32, x.float())
+        y16, _ = L.moe_apply(cfg, p, x)
+        again, _ = L.moe_apply(cfg, p, x)
+        rows.append(dict(
+            group=name, tokens=B * S, capacity=cfg.moe_capacity(
+                groups.shape[1]), assignments=B * S * cfg.top_k,
+            dropped=L.moe_route(cfg, p["router"], groups)["dropped"].tolist(),
+            oracle_dropped=want_dropped,
+            f32_max_abs_err=max_err(y32, want),
+            bf16_max_abs_err=max_err(y16, want),
+            f32_ok=torch.allclose(y32, want, atol=MOE_F32_TOL,
+                                  rtol=MOE_F32_TOL),
+            bf16_ok=torch.allclose(y16.float(), want, atol=TOLS[bf16],
+                                   rtol=TOLS[bf16]),
+            bitwise_repeat=torch.equal(y16.view(torch.int16),
+                                       again.view(torch.int16))))
+    del p32
+    torch.cuda.empty_cache()
+    log(phase="deepseek_moe_dispatch", layer=0, f32_tol=MOE_F32_TOL,
+        bf16_tol=TOLS[bf16], groups=rows)
+    for r in rows:
+        check(r["f32_ok"] and r["bf16_ok"] and r["bitwise_repeat"]
+              and r["dropped"] == r["oracle_dropped"],
+              f"moe dispatch, {r['group']}: {r}")
+    check(rows[0]["dropped"] == [0], "the decode group dropped assignments")
+
+
+def deepseek_path(dev):
+    """Phase 11: deepseek-moe-16b (28 layers of 16 heads of 128, each with
+    an MoE FFN of 64 routed experts top-6 and 2 shared, expert d_ff 1,408)
+    at full width, through phase 8's traffic with the routing wrapper in
+    place (drops by group length, routing flips of the comparisons); then
+    the dispatch check on layer 0 and the decode step's device split."""
+    def after_traffic(engine):
+        check_moe_dispatch(engine)
+        decode_split(engine, "deepseek_")
+    return dense_path(dev, DEEPSEEK, "deepseek_", SEED + 14,
+                      routes=MoeRoutes(), predicted=DEEPSEEK_PREDICTED,
+                      after_traffic=after_traffic)
 
 
 def _tensors(tree):
@@ -2065,10 +2314,12 @@ def main() -> int:
     gemma3 = gemma3_path(dev)
     free_device("gemma3")
     qwen = qwen_path(dev)
+    free_device("qwen_cut")
+    deepseek = deepseek_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
-               GEMMA3: gemma3, QWEN: qwen}
+               GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek}
     # the same kernel at other paths' shapes, by path
     wider = {"flash_attention": {RGEMMA: rg_flash, **{
                  arch: rows[0] for arch, rows in dense.items()}},

@@ -2,12 +2,15 @@
 ``repro/models/config.py``).
 
 The same frozen dataclass and field names as the JAX package, for the
-fields the dense decoder, the Mamba-1 block, the RG-LRU block and the
-int8 KV cache read and the features the port still refuses.
+fields the dense decoder, the MoE FFN, the Mamba-1 block, the RG-LRU
+block and the int8 KV cache read and the features the port still
+refuses.
 Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
-``remat*``, ``ssm_fuse``, cost-probe overrides, sharding padding) are
-dropped: the port picks its kernels by the device a tensor lives on, not
-by a flag.
+``remat*``, ``ssm_fuse``, cost-probe overrides, sharding padding,
+``moe_gathered_spec``) are dropped: the port picks its kernels by the
+device a tensor lives on, not by a flag.  ``router_aux_weight``, which
+only the training loss reads, comes with ``loss_fn`` (``ROADMAP.md``,
+A.13).
 
 Layer-kind strings used in ``pattern``:
   "attn"   full (global) causal self-attention
@@ -20,6 +23,7 @@ Layer-kind strings used in ``pattern``:
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -28,6 +32,10 @@ import torch
 ATTN_KINDS = ("attn", "local", "swa", "global")
 PORTED_KINDS = ATTN_KINDS + ("mamba", "rec")
 KV_QUANTS = ("none", "int8")
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 @dataclass(frozen=True)
@@ -52,6 +60,12 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma-style sqrt(d) embedding multiplier
+    # ---- MoE ----
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                # per-routed-expert hidden size
+    capacity_factor: float = 1.25
     # ---- SSM (Mamba-1) / RG-LRU ----
     d_inner: int = 0
     ssm_state: int = 0
@@ -60,7 +74,6 @@ class ModelConfig:
     scan_chunk: int = 256            # chunk of the stateful linear scan
     rglru_blocks: int = 16           # block-diagonal gate blocks
     # ---- features not yet ported (check_supported refuses them) ----
-    num_experts: int = 0
     is_encoder_decoder: bool = False
     frontend: str = ""               # "" | "audio" | "vision"
     # ---- KV cache ----
@@ -104,6 +117,12 @@ class ModelConfig:
             out.append((p[:rem], 1))
         return tuple(out)
 
+    def moe_capacity(self, tokens_per_group: int) -> int:
+        """Per-expert slot capacity for a dispatch group of given size."""
+        ideal = tokens_per_group * self.top_k / self.num_experts
+        c = int(math.ceil(ideal * self.capacity_factor))
+        return max(1, min(_round_up(c, 4), tokens_per_group * self.top_k))
+
     def num_params(self) -> int:
         """Analytic parameter count (the JAX package's formula for the
         layer kinds the port runs; norm scales are not counted)."""
@@ -115,8 +134,16 @@ class ModelConfig:
             + self.num_heads * hd * d
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
-        ffn = (3 if self.glu else 2) * d * self.d_ff
-        per_kind = {k: attn + ffn for k in ATTN_KINDS}
+        ffn_mult = 3 if self.glu else 2
+        ffn = ffn_mult * d * self.d_ff
+        if self.num_experts:
+            moe = d * self.num_experts \
+                + self.num_experts * ffn_mult * d * self.moe_d_ff \
+                + (self.num_shared_experts * ffn_mult * d * self.moe_d_ff
+                   if self.num_shared_experts else 0)
+            per_kind = {k: attn + moe for k in ATTN_KINDS}
+        else:
+            per_kind = {k: attn + ffn for k in ATTN_KINDS}
         if self.d_inner:
             di, s = self.d_inner, self.ssm_state
             per_kind["mamba"] = (d * 2 * di + self.conv_width * di
@@ -131,6 +158,18 @@ class ModelConfig:
                 n += per_kind[kind] * reps
         return n
 
+    def active_params(self) -> int:
+        """Params touched per token (MoE: only routed top-k)."""
+        if not self.num_experts:
+            return self.num_params()
+        d = self.d_model
+        ffn_mult = 3 if self.glu else 2
+        dead = (self.num_experts - self.top_k) * ffn_mult * d * self.moe_d_ff
+        n_moe_layers = sum(
+            reps * sum(1 for k in pat if k in ATTN_KINDS)
+            for pat, reps in self.stages())
+        return self.num_params() - dead * n_moe_layers
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -138,8 +177,6 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig):
     """Raise for what the port does not run yet (ROADMAP.md, queue A)."""
     missing = []
-    if cfg.num_experts:
-        missing.append("MoE FFN")
     if cfg.is_encoder_decoder:
         missing.append("encoder-decoder cross-attention")
     if cfg.frontend:

@@ -18,7 +18,10 @@ bf16 rounds where the JAX package rounds: norms and rope in f32 and cast
 back, projections as bf16 products, the scans in f32.  The int8 KV cache
 (``kv_quant="int8"``) quantizes keys and values per (token, head) and
 dequantizes the cache before attention reads it, as the JAX package does.
-MoE and cross-attention are not ported yet (``config.check_supported``).
+The MoE FFN (``moe_apply``) dispatches as the JAX package does, group by
+group with capacity drops, in plain tensor operations (the JAX package
+has no kernel for it either).  Cross-attention is not ported yet
+(``config.check_supported``).
 """
 
 from __future__ import annotations
@@ -381,6 +384,141 @@ def ffn_apply(cfg: ModelConfig, p, x):
     if cfg.glu:
         h = h * (x @ p["w3"])
     return h @ p["w2"]
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-Experts FFN (top-k, shared experts, capacity-dropped dispatch)
+# --------------------------------------------------------------------------
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared experts as one dense FFN of their summed width."""
+    return cfg.replace(d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
+
+
+def init_moe(cfg: ModelConfig, generator, lead=(), device=None):
+    """MoE weights (stacked over ``lead``) at the JAX init's shapes, scales
+    and dtypes: the router in f32 whatever ``param_dtype`` is, the experts'
+    (E, d, f) and (E, f, d) products and the shared FFN in
+    ``param_dtype``."""
+    d, E, fe = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    dt = cfg.param_torch_dtype
+    p = {
+        "router": normal_init((*lead, d, E), d ** -0.5, F32, generator,
+                              device),
+        "w1": normal_init((*lead, E, d, fe), d ** -0.5, dt, generator,
+                          device),
+        "w2": normal_init((*lead, E, fe, d), fe ** -0.5, dt, generator,
+                          device),
+    }
+    if cfg.glu:
+        p["w3"] = normal_init((*lead, E, d, fe), d ** -0.5, dt, generator,
+                              device)
+    if cfg.num_shared_experts:
+        p["shared"] = init_ffn(_shared_cfg(cfg), generator, lead, device)
+    return p
+
+
+def moe_groups(x):
+    """x: (B, S, d) as dispatch groups (G, T, d).  A batch row is a group;
+    a decode batch (S == 1, B > 1) is regrouped into ``min(B, dp_size)``
+    groups, which without a sharding policy (``dp_size`` 1, the JAX
+    package's ``NULL_POLICY``) is one group of B tokens."""
+    B, S, d = x.shape
+    return x.reshape(1, B, d) if S == 1 and B > 1 else x
+
+
+def moe_route(cfg: ModelConfig, router, x):
+    """Top-k routing and capacity slotting of the groups x: (G, S, d).
+
+    The router runs in f32; the top-k gates are renormalised.  The (token,
+    choice) assignments of a group, flattened token-major, are stably
+    sorted by expert: each expert's first ``C = moe_capacity(S)`` takers
+    get its slots ``e * C + rank`` and the rest are dropped (slot
+    ``E * C``).  Returns a dict of
+      probs (G, S, E) f32, eidx (G, S, K), counts (G, E) takers per expert,
+      table (G, E*C) the token in each slot (S, a zero row, where empty),
+      wtab (G, E*C) f32 the gate of each slot's assignment (0 where empty),
+      slot (G, S, K) each assignment's slot (E*C where dropped),
+      dropped (G,) the assignments each group dropped."""
+    G, S, _ = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = cfg.moe_capacity(S)
+    probs = torch.softmax(x.to(F32) @ router, dim=-1)
+    gate, eidx = torch.topk(probs, K, dim=-1)
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    ef = eidx.reshape(G, S * K)
+    order = torch.argsort(ef, dim=-1, stable=True)
+    sorted_e = ef.gather(-1, order)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(1, ef, torch.ones_like(ef))
+    starts = counts.cumsum(dim=-1) - counts
+    ranks = torch.arange(S * K, device=x.device) - starts.gather(-1,
+                                                                 sorted_e)
+    keep = ranks < C
+    dest = torch.where(keep, sorted_e * C + ranks, E * C)
+    src_tok = order // K
+    wts = gate.reshape(G, S * K).gather(-1, order)
+    # the sentinel column E*C takes every dropped assignment and is cut off
+    table = torch.full((G, E * C + 1), S, dtype=torch.int64,
+                       device=x.device).scatter_(1, dest, src_tok)[:, :E * C]
+    wtab = torch.zeros((G, E * C + 1), dtype=F32,
+                       device=x.device).scatter_(1, dest, wts)[:, :E * C]
+    slot = torch.empty_like(dest).scatter_(1, order, dest).view(G, S, K)
+    return {"probs": probs, "eidx": eidx, "counts": counts, "table": table,
+            "wtab": wtab, "slot": slot, "dropped": (~keep).sum(dim=-1)}
+
+
+def moe_apply(cfg: ModelConfig, p, x):
+    """Group-local capacity dispatch (``moe_groups``, ``moe_route``).
+    x: (B, S, d).  Returns (y, aux): y (B, S, d) in x's dtype and the
+    Switch-style load-balance loss (f32 scalar) of the undropped counts.
+
+    Each expert's slots gather their tokens' rows into one (E, G*C, d)
+    tensor, whose products ``act(x @ w1) * (x @ w3) @ w2`` are batched
+    over E; each slot's output is scaled by its gate cast to x's dtype.
+    The JAX package then scatter-adds the slots into the tokens in slot
+    order; here each token gathers the outputs of its K slots (a dropped
+    assignment reads a zero row) and adds them in that same order, one
+    addition at a time in x's dtype: no floating-point atomics, so two
+    runs on the card are bitwise equal.  The shared experts' FFN is added
+    last."""
+    orig_shape = x.shape
+    x = moe_groups(x)
+    G, S, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    C = cfg.moe_capacity(S)
+    r = moe_route(cfg, p["router"], x)
+
+    # row g*(S+1) + t of the padded flat batch is token t of group g
+    x_pad = torch.cat([x, x.new_zeros((G, 1, d))], dim=1).view(-1, d)
+    rows = r["table"] + torch.arange(G, device=x.device)[:, None] * (S + 1)
+    xe = x_pad[rows.view(G, E, C).transpose(0, 1).reshape(E, G * C)]
+    h = _act(cfg, torch.bmm(xe, p["w1"]))
+    if cfg.glu:
+        h = h * torch.bmm(xe, p["w3"])
+    out = torch.bmm(h, p["w2"])                             # (E, G*C, d)
+    w = r["wtab"].view(G, E, C).transpose(0, 1).reshape(E, G * C, 1)
+    out = out * w.to(out.dtype)
+
+    # assignment slot e*C + c of group g is row e*G*C + g*C + c of ``out``
+    slot = r["slot"]
+    flat = ((slot // C) * (G * C) + torch.arange(G, device=x.device)[
+        :, None, None] * C + slot % C)
+    flat = torch.where(slot < E * C, flat, E * G * C)
+    flat = flat.sort(dim=-1).values        # slot order: expert by expert
+    out = torch.cat([out.view(E * G * C, d), out.new_zeros((1, d))])
+    parts = out[flat]                                       # (G, S, K, d)
+    y = parts[:, :, 0]
+    for k in range(1, K):
+        y = y + parts[:, :, k]
+    y = y.reshape(orig_shape)
+    if cfg.num_shared_experts:
+        y = y + ffn_apply(_shared_cfg(cfg), p["shared"],
+                          x.reshape(orig_shape))
+
+    frac = r["counts"].to(F32).sum(dim=0) / (G * S * K)
+    imp = r["probs"].mean(dim=(0, 1))
+    return y, E * torch.sum(frac * imp)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Stack assembly for the dense decoder, the Mamba-1 stack and the
-Griffin hybrid (RG-LRU and local attention): train forward, prefill,
+"""Stack assembly for the dense and MoE decoders, the Mamba-1 stack and
+the Griffin hybrid (RG-LRU and local attention): train forward, prefill,
 chunked prefill and decode (port of ``repro/models/model.py``).
 
 Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
@@ -46,11 +46,12 @@ def _stack(trees):
 # --------------------------------------------------------------------------
 def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                 pos=None, cache=None, causal=True, cache_len=0):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): aux is the MoE layer's router loss,
+    None for a layer without one."""
     if kind == "mamba":
-        return _apply_mamba(cfg, p, x, mode=mode, cache=cache)
+        return (*_apply_mamba(cfg, p, x, mode=mode, cache=cache), None)
     if kind == "rec":
-        return _apply_rec(cfg, p, x, mode=mode, cache=cache)
+        return (*_apply_rec(cfg, p, x, mode=mode, cache=cache), None)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not yet ported "
                                   "to PyTorch (see ROADMAP.md, queue A)")
@@ -71,10 +72,15 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                         L.cache_entries(cfg, k, v).items()}
     x = x + y
     h2 = L.norm_apply(cfg, p.get("ln2", {}), x)
-    x = x + L.ffn_apply(cfg, p["ffn"], h2)
+    aux = None
+    if "moe" in p:
+        y2, aux = L.moe_apply(cfg, p["moe"], h2)
+    else:
+        y2 = L.ffn_apply(cfg, p["ffn"], h2)
+    x = x + y2
     if mode in ("prefill", "decode", "extend"):
         new_cache["attn"] = new_attn
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache):
@@ -116,9 +122,12 @@ def _apply_rec(cfg: ModelConfig, p, x, *, mode: str, cache):
 def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
                 positions, pos=None, caches=None, causal=True, cache_len=0):
     """pattern_list: list of (pattern, repeats) matching stages_params.
-    Returns (x, caches): in decode/extend the given caches (written in
-    place), in prefill new ones, in train None per stage."""
+    Returns (x, caches, aux): in decode/extend the given caches (written
+    in place), in prefill new ones, in train None per stage; aux is the
+    sum of the layers' MoE router losses in layer order (None without MoE
+    layers)."""
     new_caches = []
+    total_aux = None
     for si, ((pattern, repeats), sp) in enumerate(
             zip(pattern_list, stages_params)):
         stage_cache = None if caches is None else caches[si]
@@ -128,17 +137,19 @@ def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
             lc = None if stage_cache is None else _index(stage_cache, r)
             ncs = {}
             for j, kind in enumerate(pattern):
-                x, ncs[f"b{j}"] = apply_layer(
+                x, ncs[f"b{j}"], aux = apply_layer(
                     cfg, kind, lp[f"b{j}"], x, mode=mode,
                     positions=positions, pos=pos,
                     cache=None if lc is None else lc[f"b{j}"],
                     causal=causal, cache_len=cache_len)
+                if aux is not None:
+                    total_aux = aux if total_aux is None else total_aux + aux
             rep_caches.append(ncs)
         if mode == "prefill":
             new_caches.append(_stack(rep_caches))
         else:
             new_caches.append(stage_cache)
-    return x, new_caches
+    return x, new_caches, total_aux
 
 
 # --------------------------------------------------------------------------
@@ -176,13 +187,15 @@ def _assemble_input(cfg: ModelConfig, params, batch):
 # --------------------------------------------------------------------------
 def forward_train(cfg: ModelConfig, params, batch):
     """Full-sequence teacher-forced forward. Returns (logits, aux); aux is
-    the MoE router loss of the JAX package, 0 for a dense stack."""
+    the MoE layers' summed router loss, as the JAX package's, 0 for a
+    stack without MoE layers."""
     x, positions = _assemble_input(cfg, params, batch)
-    x, _ = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
-                       mode="train", positions=positions)
+    x, _, aux = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
+                            mode="train", positions=positions)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
-    return _logits(cfg, params, x), torch.zeros((), dtype=F32,
-                                                device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
@@ -227,9 +240,9 @@ def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     """Process the prompt; returns (last-token logits, cache, next_pos)."""
     x, positions = _assemble_input(cfg, params, batch)
-    x, caches = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
-                            mode="prefill", positions=positions,
-                            cache_len=cache_len)
+    x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),
+                               x, mode="prefill", positions=positions,
+                               cache_len=cache_len)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     logits = _logits(cfg, params, x[:, -1:])
     return logits, caches, x.shape[1]
@@ -241,9 +254,9 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, cache, off):
     (B, C, V), cache) — the cache given, written in place."""
     check_supported(cfg)
     x = _embed_tokens(cfg, params, tokens)
-    x, caches = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
-                            mode="extend", positions=None, pos=off,
-                            caches=cache)
+    x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),
+                               x, mode="extend", positions=None, pos=off,
+                               caches=cache)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     return _logits(cfg, params, x), caches
 
@@ -255,8 +268,8 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos):
     check_supported(cfg)
     x = _embed_tokens(cfg, params, tokens)
     pos = L.positions_vector(pos, x.shape[0], x.device)
-    x, caches = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
-                            mode="decode", positions=None, pos=pos,
-                            caches=cache)
+    x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),
+                               x, mode="decode", positions=None, pos=pos,
+                               caches=cache)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     return _logits(cfg, params, x), caches

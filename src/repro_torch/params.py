@@ -34,7 +34,10 @@ def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device):
     else:
         p["attn"] = L.init_attention(cfg, generator, (reps,), device)
     p["ln2"] = L.init_norm(cfg, d, (reps,), device)
-    p["ffn"] = L.init_ffn(cfg, generator, (reps,), device)
+    if kind != "rec" and cfg.num_experts:
+        p["moe"] = L.init_moe(cfg, generator, (reps,), device)
+    else:
+        p["ffn"] = L.init_ffn(cfg, generator, (reps,), device)
     return p
 
 

@@ -29,8 +29,8 @@ def make_embed_step(cfg: ModelConfig):
     def embed_step(params, batch):
         # run the decoder stack in train (full-sequence) mode, no logits
         x, positions = M._assemble_input(cfg, params, batch)
-        x, _ = M._run_stages(cfg, params["stages"], list(cfg.stages()), x,
-                             mode="train", positions=positions)
+        x, _, _ = M._run_stages(cfg, params["stages"], list(cfg.stages()),
+                                x, mode="train", positions=positions)
         x = L.norm_apply(cfg, params.get("final_norm", {}), x)
         mask = (batch["tokens"] >= 0).to(F32)
         emb = (x.to(F32) * mask[..., None]).sum(dim=1) / \

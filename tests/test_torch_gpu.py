@@ -11,7 +11,9 @@ those for the selective scan and the RG-LRU recurrence (their tests
 there), top-k ids exact: ties rank by id ascending, as the reference's
 retrieval operators order them.  The last case drives the retrieval
 layer's full-ranking branch (a plan's masked ``corpus_filter``) at the
-Query 3 phase's corpus shape.
+Query 3 phase's corpus shape.  The MoE FFN, which has no kernel, is
+held on the card against the CPU and against itself (two bf16 calls
+bitwise equal).
 """
 
 import numpy as np
@@ -456,6 +458,107 @@ def test_rg_lru_rejects_bad_input(cuda):
         rglru_ops.rg_lru(a.transpose(0, 1), a.transpose(0, 1))
     with pytest.raises(ValueError):                 # a CPU tensor
         rglru_ops.rg_lru(a, a.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN (plain tensor operations, no kernel of its own)
+# ---------------------------------------------------------------------------
+def _moe_layer(cfg, device):
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=device).manual_seed(0)
+    return M._index(L.init_moe(cfg, gen, (1,), device), 0)
+
+
+@pytest.mark.parametrize("B,S", [(2, 32), (4, 1), (1, 128)])
+def test_moe_apply_on_the_card_matches_the_cpu(cuda, B, S):
+    """f32, deepseek-moe-16b's routing (64 experts top-6, 2 shared) at a
+    narrow width: the card's output within 2e-5 of the CPU's on the same
+    inputs, the router loss within 1e-5, the same drops per group (none in
+    the decode group of 4)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    cfg = get_smoke_config("deepseek-moe-16b").replace(
+        num_experts=64, top_k=6, param_dtype="float32",
+        compute_dtype="float32")
+    p = _moe_layer(cfg, cuda)
+    x = _t(np.random.default_rng(B * S), (B, S, cfg.d_model), torch.float32,
+           cuda)
+    y, aux = L.moe_apply(cfg, p, x)
+    p_cpu = {k: (v.cpu() if torch.is_tensor(v)
+                 else {n: t.cpu() for n, t in v.items()})
+             for k, v in p.items()}
+    y_cpu, aux_cpu = L.moe_apply(cfg, p_cpu, x.cpu())
+    _close(y.cpu(), y_cpu, torch.float32)
+    assert abs(float(aux) - float(aux_cpu)) < 1e-5
+    drops = L.moe_route(cfg, p["router"], L.moe_groups(x))["dropped"]
+    assert drops.tolist() == L.moe_route(
+        cfg, p_cpu["router"], L.moe_groups(x.cpu()))["dropped"].tolist()
+    if S == 1:
+        assert int(drops.sum()) == 0
+
+
+@pytest.mark.parametrize("B,S", [(64, 128), (1, 32), (4, 1)])
+def test_moe_apply_bf16_repeats_bitwise(cuda, B, S):
+    """One layer of deepseek-moe-16b at full width (d 2,048, 64 experts of
+    1,408, top-6, 2 shared) in bf16, at the embed batch's, a prefill
+    chunk's and a decode step's groups: two calls on the same inputs are
+    bitwise equal (the combine gathers, it does not scatter-add)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek-moe-16b")
+    p = _moe_layer(cfg, cuda)
+    x = _t(np.random.default_rng(1), (B, S, cfg.d_model), torch.bfloat16,
+           cuda)
+    y1, aux1 = L.moe_apply(cfg, p, x)
+    y2, aux2 = L.moe_apply(cfg, p, x)
+    assert y1.dtype == torch.bfloat16 and torch.isfinite(y1).all()
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(aux1, aux2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_step_on_the_card(cuda, dtype):
+    """One decode step of deepseek-moe-16b's smoke config on the card,
+    the cache filled by chunked prefill (per-row lengths): decode
+    attention launches once a layer; in f32 the logits are within 1e-4 of
+    the same step through the plain decode attention; in bf16 the step
+    repeated on the same cache is bitwise equal."""
+    from unittest import mock
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    cfg = get_smoke_config("deepseek-moe-16b").replace(
+        param_dtype=dtype, compute_dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    cache = M.init_cache(cfg, 4, 256, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for c0 in range(0, 96, 32):
+        toks = torch.randint(0, 256, (4, 32), generator=g, device=cuda)
+        M.prefill_chunk(cfg, params, toks, cache, c0)
+    toks = torch.randint(0, 256, (4, 1), generator=g, device=cuda)
+    pos = torch.tensor([96, 80, 33, 5], dtype=torch.int32, device=cuda)
+
+    def step():
+        clone = [{b: {k: {n: t.clone() for n, t in c.items()}
+                      for k, c in blk.items()} for b, blk in st.items()}
+                 for st in cache]
+        return M.decode_step(cfg, params, toks, clone, pos)[0]
+    before = decode_ops.decode_attention.launches
+    out = step()
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + cfg.num_layers
+    assert torch.isfinite(out).all()
+    if dtype == "float32":
+        with mock.patch.object(L.decode_ops, "decode_attention",
+                               decode_attention_ref):
+            ref = step()
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    else:
+        assert torch.equal(out, step())
 
 
 # ---------------------------------------------------------------------------

@@ -77,9 +77,9 @@ def test_entry_points_default_to_cuda(no_cuda):
 
 
 def test_not_yet_ported_names_four_archs():
+    """Four architectures until the MoE configs were ported; two now."""
     from repro_torch.configs import NOT_YET_PORTED, get_config
-    assert NOT_YET_PORTED == ("whisper-base", "phi-3-vision-4.2b",
-                              "mixtral-8x7b", "deepseek-moe-16b")
+    assert NOT_YET_PORTED == ("whisper-base", "phi-3-vision-4.2b")
     for arch in NOT_YET_PORTED:
         with pytest.raises(KeyError, match="not yet ported"):
             get_config(arch)
@@ -94,6 +94,19 @@ def test_dense_configs_default_to_cuda(no_cuda, arch):
         ServingEngine(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg.replace(kv_quant="int8"))
+    assert ServingEngine(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x7b"])
+def test_moe_configs_default_to_cuda(no_cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import LocalTorchProvider
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_smoke_config(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalTorchProvider(arch)
     assert ServingEngine(cfg, device="cpu").device.type == "cpu"
 
 

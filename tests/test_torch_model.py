@@ -87,17 +87,17 @@ def test_config_matches_jax(smoke):
     assert t.stages() == j.stages()
     assert t.num_params() == j.num_params()
     assert list_archs() == ["olmo-1b", "falcon-mamba-7b", "recurrentgemma-9b",
-                            "granite-8b", "gemma3-12b", "qwen1.5-32b"]
+                            "granite-8b", "gemma3-12b", "qwen1.5-32b",
+                            "deepseek-moe-16b", "mixtral-8x7b"]
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
 def test_unported_arch_raises(arch):
     with pytest.raises(KeyError, match="not yet ported"):
         get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_smoke_config("olmo-1b").replace(num_experts=4),
-                    torch.Generator())
+        init_params(get_smoke_config("olmo-1b").replace(
+            is_encoder_decoder=True), torch.Generator())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
