@@ -22,8 +22,10 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      (32 query heads over 8 KV heads of 128; 40 heads of 128) and of
      gemma3-12b's 4 texts of 2,048 tokens (16 query heads over 8 KV heads
      of 256, window 1,024), decode attention at each one's heads over 4
-     slots x 2048 positions, gemma3-12b's past its window), with
-     CUDA-event times of the
+     slots x 2048 positions, gemma3-12b's past its window; whisper-base of
+     phase 12: flash attention without the causal mask over 4 clips of
+     1,500 frames, 8 heads of 64, against SDPA without a mask, and decode
+     attention at 8 heads of 64), with CUDA-event times of the
      kernel, the plain version and, where one exists, one PyTorch library
      call computing the same function; bounds from the card's peak rates.
      Flash and decode attention and their SDPA yardsticks are timed in
@@ -121,12 +123,27 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      1e-4, in bf16 within 2e-2, the same drops, the bf16 call repeated
      bitwise equal; and the device time of 3 decode steps split as in
      phase 10 (the expert GEMMs read every expert's weights a step);
-  12. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  12. deepseek-moe-16b freed, whisper-base at full width (6 encoder and 6
+     decoder layers, d 512, 8 heads of 64), served as the JAX package
+     serves it: a 4-slot engine answers 2 text requests on its default
+     cache (zero cross-attention keys and values) and refuses an embed
+     request without frames (``KeyError``, ROADMAP C.15); then its cache
+     is ``encode_for_cache`` of 4 random clips of 1,500 frames (the
+     encoder runs flash attention without the causal mask, once a layer)
+     and it serves 8 requests of 32 new tokens, two a slot, and the embed
+     step runs over 4 (text, clip) pairs; every flash call and one decode
+     call in 7 held against the plain version, flash attention counted
+     6 times a cache and 12 times an embed step, decode attention 6
+     times a decode step; a decode step and a 64-pair embed batch against
+     the plain path, prefill and decode in f32 against teacher forcing,
+     the decode step's device split, and each request against a fresh
+     engine whose slot holds the same clip;
+  13. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
-     qwen1.5-32b, deepseek-moe-16b; flash and decode attention also with
-     their run keys at each model's shapes), then the card, then the
-     result line.
+     qwen1.5-32b, deepseek-moe-16b, whisper-base; flash and decode
+     attention also with their run keys at each model's shapes), then the
+     card, then the result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -159,6 +176,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SFU_EXP_PER_CLOCK_PER_SM = 16
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 LOGITS_TOL = 6e-2                                    # bf16 model tolerance
+F32_LOGITS_TOL = 1e-4                       # f32 model tolerance of the tests
+# whisper's embed step against the plain path: min cosine above 1 - this
+# (0.9999984 on an H100 80GB HBM3 at 700 W)
+WHISPER_EMBED_COS_GAP = 1e-4
 
 
 def log(**kw):
@@ -316,13 +337,14 @@ def causal_pairs(L: int, window: int = 0) -> int:
 
 
 def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
-                seed=SEED):
+                causal=True, seed=SEED):
     """Flash attention on an embed batch: by default olmo-1b's (64 texts of
     128 tokens, 16 heads of 128); recurrentgemma-9b's with ``KH=1, hd=256,
-    window=2048``; the dense models' of this slice at their head counts
-    (gemma3-12b's with 4 texts of 2048 tokens, where its window of 1024
-    cuts).  SDPA is the yardstick, with an explicit mask where the window
-    cuts."""
+    window=2048``; the dense models at their head counts (gemma3-12b's
+    with 4 texts of 2048 tokens, where its window of 1024 cuts);
+    whisper-base's encoder over 4 clips of 1,500 frames without the causal
+    mask (``causal=False``).  SDPA is the yardstick, with an explicit mask
+    where the window cuts."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dt = torch.bfloat16
@@ -332,20 +354,26 @@ def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
             for _ in range(2))
 
     def kern():
-        return flash_attention(q, k, v, causal=True, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     def plain():
-        return attention_ref(q, k, v, causal=True, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window)
     out, ref = kern(), plain()
     err = max_err(out, ref)
+    # also normalised by the output's scale: over 1,500 keys the outputs
+    # are small beside the absolute tolerance
+    norm_err = err / ref.float().abs().max().item()
     ok = torch.allclose(out.float(), ref.float(), atol=TOLS[dt],
-                        rtol=TOLS[dt])
+                        rtol=TOLS[dt]) and norm_err <= TOLS[dt]
     del out, ref
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = {} if KH == H else {"enable_gqa": True}
-    cuts = 0 < window < L
-    if cuts:
+    cuts = causal and 0 < window < L
+    if not causal:
+        def lib():
+            return sdpa(qt, kt, vt, **gqa)
+    elif cuts:
         i = torch.arange(L, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
 
@@ -358,11 +386,13 @@ def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
     k_ms, lib_ms = time_pairs_ms(kern, lib, flush)
     med, lib_med = statistics.median(k_ms), statistics.median(lib_ms)
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    flops = 4 * B * H * causal_pairs(L, window) * hd
+    pairs = causal_pairs(L, window) if causal else L * L
+    flops = 4 * B * H * pairs * hd
     b_ms, b_by = bound_ms(nbytes, flops, dt)
-    shape = (f"q,k,v ({B}, {L}, {H}, {hd}) bf16 causal" if KH == H else
+    kind = "causal" if causal else "non-causal"
+    shape = (f"q,k,v ({B}, {L}, {H}, {hd}) bf16 {kind}" if KH == H else
              f"q ({B}, {L}, {H}, {hd}), k,v ({B}, {L}, {KH}, {hd}) bf16 "
-             f"causal")
+             f"{kind}")
     if window:
         shape += f", window {window}"
     row = dict(
@@ -370,8 +400,8 @@ def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:80",
         shape=shape,
-        max_abs_err=err, atol=TOLS[dt], rtol=TOLS[dt], ok=ok,
-        ms=med, ms_min=min(k_ms), plain_ms=time_ms(plain, flush, iters=5),
+        max_abs_err=err, max_normalised_err=norm_err, atol=TOLS[dt],
+        rtol=TOLS[dt], ok=ok, ms=med, ms_min=min(k_ms), plain_ms=time_ms(plain, flush, iters=5),
         library_ms=lib_med, library_ms_min=min(lib_ms),
         library="F.scaled_dot_product_attention"
         + ("(mask" if cuts else "(") + (", enable_gqa)" if gqa else ")"),
@@ -522,8 +552,9 @@ def check_decode_rows(dev, flush):
     return olmo + short, rg
 
 
-# the dense models of phases 8-10 at their served widths: (flash attention
-# of an embed request, decode attention over the engine's 4 x 2048 cache)
+# the dense models of phases 8-10 and whisper-base of phase 12 at their
+# served widths: (flash attention of an embed request, or of whisper's
+# encoder over 4 clips; decode attention over the engine's 4 x 2048 cache)
 DENSE_SHAPES = {
     "granite-8b": (dict(H=32, KH=8, hd=128),
                    dict(H=32, KH=8, hd=128, windows=(0,))),
@@ -535,12 +566,15 @@ DENSE_SHAPES = {
                         positions=(2000, 1500, 1100, 37))),
     "qwen1.5-32b": (dict(H=40, KH=40, hd=128),
                     dict(H=40, KH=40, hd=128, windows=(0,))),
+    # the encoder's self-attention over 1,500 frames, no causal mask
+    "whisper-base": (dict(B=4, L=1500, H=8, KH=8, hd=64, causal=False),
+                     dict(H=8, KH=8, hd=64, windows=(0,))),
 }
 
 
 def check_dense_rows(dev, flush):
-    """Phase 2's flash and decode rows at the shapes of phases 8-10:
-    {arch: (flash row, decode row)}."""
+    """Phase 2's flash and decode rows at the shapes of phases 8-10 and
+    12: {arch: (flash row, decode row)}."""
     return {arch: (check_flash(dev, flush, seed=SEED + 10 + i, **fl),
                    check_decode(dev, flush, seed=SEED + 20 + i, **dec)[0])
             for i, (arch, (fl, dec)) in enumerate(DENSE_SHAPES.items())}
@@ -1025,16 +1059,20 @@ PLAN_REPORT = ("n_tuples", "n_unique", "cache_hits", "requests", "retries",
 
 class HeldKernel:
     """A kernel's wrapper that holds one call in ``every`` against the
-    plain version on the same inputs, at TOLS of the first input's dtype
-    (allclose's test).  Every call goes through the wrapper, whose count
-    moves as it does on the path; the plain version launches no kernel.
-    Each held call's error, its excess over the tolerance and (for decode
-    attention) its largest position stay on the card until ``read``: no
-    call waits for the card."""
+    plain version on the same inputs, at TOLS of the first input's dtype:
+    allclose's test, and the same bound on the error normalised by the
+    plain output's largest magnitude (max|diff| / max|ref|), which an
+    absolute tolerance misses where the outputs are small.  Every call
+    goes through the wrapper, whose count moves as it does on the path;
+    the plain version launches no kernel.  Each held call's errors, its
+    excess over the tolerance and (for decode attention) its largest
+    position stay on the card until ``read``: no call waits for the
+    card."""
 
     def __init__(self, kernel, plain, every=1):
         self.kernel, self.plain, self.every = kernel, plain, every
         self.calls, self.rows, self.shapes = 0, [], set()
+        self.tol = None
 
     # the wrapper counts under its module-level name, which is this object
     # while the patch holds: pass the count through to the wrapper's own
@@ -1052,14 +1090,15 @@ class HeldKernel:
         if (self.calls - 1) % self.every:
             return out
         ref = self.plain(*args, **kw).float()
-        tol = TOLS[args[0].dtype]
+        tol = self.tol = TOLS[args[0].dtype]
         diff = (out.float() - ref).abs()
         # decode attention's fourth input: the positions
         top = (args[3].max().float()
                if len(args) > 3 and torch.is_tensor(args[3])
                else diff.new_tensor(-1.0))
         self.rows.append(torch.stack(
-            [diff.max(), (diff - tol - tol * ref.abs()).max(), top]))
+            [diff.max(), (diff - tol - tol * ref.abs()).max(), top,
+             diff.max() / ref.abs().max().clamp_min(1e-30)]))
         self.shapes.add((tuple(args[0].shape), tuple(args[1].shape)))
         return out
 
@@ -1069,7 +1108,9 @@ class HeldKernel:
         top = int(rows[:, 2].max())
         return dict(calls=self.calls, held=len(self.rows),
                     max_abs_err=float(rows[:, 0].max()),
-                    ok=bool((rows[:, 1] <= 0).all()),
+                    max_normalised_err=float(rows[:, 3].max()),
+                    ok=bool((rows[:, 1] <= 0).all()
+                            and (rows[:, 3] <= self.tol).all()),
                     max_position=top if top >= 0 else None,
                     shapes=[list(map(list, s)) for s in sorted(self.shapes)])
 
@@ -1920,12 +1961,15 @@ def decode_split(engine, prefix, steps=3):
     """Device time of ``steps`` engine steps with every slot decoding,
     from ``torch.profiler`` (host and device activity): the weight GEMMs
     (kernels by name, as phase 5 groups them; beside the least time of
-    reading every weight but the embedding once a step), on the int8
+    reading every weight but the embedding (and an encoder) once a step),
+    on the int8
     cache the dequantization of the cache (the kernels launched under a
     ``dequantize_kv`` annotation wrapped around each call), the decode
     kernel, and the rest; with the idle share of the window.  The
     dequantization of one layer's cache is also timed alone with CUDA
-    events, times the layers (on the int8 cache)."""
+    events, times the layers (on the int8 cache).  An encoder-decoder's
+    plain cross-attention is annotated the same way and logged beside the
+    split (its GEMMs and elementwise kernels are also in the groups)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import layers as L
@@ -1935,13 +1979,19 @@ def decode_split(engine, prefix, steps=3):
             for _ in range(engine.n_slots)]
     while any(r.pending_prompt or r.slot < 0 for r in reqs):
         engine.step()
-    dequantize = L.dequantize_kv
+    marks = ("dequantize_kv", "cross_attention")
 
-    def marked(*args, **kw):
-        with record_function("dequantize_kv"):
-            return dequantize(*args, **kw)
+    def marked(name):
+        fn = getattr(L, name)
+
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
     torch.cuda.synchronize()
-    with mock.patch.object(L, "dequantize_kv", marked), \
+    with mock.patch.object(L, "dequantize_kv", marked("dequantize_kv")), \
+            mock.patch.object(L, "cross_attention",
+                              marked("cross_attention")), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1954,13 +2004,14 @@ def decode_split(engine, prefix, steps=3):
           "decode_split: the traced requests did not finish")
     events = prof.events()
     kernels = [(e.device_time_total, e.name) for e in events
-               if e.device_type == DeviceType.CUDA
-               and e.name != "dequantize_kv"]
-    deq_us = sum(e.device_time_total for e in events
-                 if e.device_type == DeviceType.CPU
-                 and e.name == "dequantize_kv")
-    n_deq = sum(1 for e in events if e.device_type == DeviceType.CPU
-                and e.name == "dequantize_kv")
+               if e.device_type == DeviceType.CUDA and e.name not in marks]
+
+    def annotated(name):
+        spans = [e.device_time_total for e in events
+                 if e.device_type == DeviceType.CPU and e.name == name]
+        return sum(spans), len(spans)
+    deq_us, n_deq = annotated("dequantize_kv")
+    cross_us, n_cross = annotated("cross_attention")
     groups = {"matmul": 0.0, "decode_attention": 0.0}
     for us, name in kernels:
         if "decode_mma_kernel" in name:
@@ -1971,7 +2022,8 @@ def decode_split(engine, prefix, steps=3):
     groups["dequantize_kv"] = deq_us / 1e3
     groups["other"] = busy - sum(groups.values())
     weight_bytes = sum(t.numel() * t.element_size() for name, tree in
-                       engine.params.items() if name != "embed"
+                       engine.params.items()
+                       if name not in ("embed", "encoder")
                        for t in _tensors(tree))
     row = dict(phase=f"{prefix}decode_split", engine_steps=steps,
                slots=engine.n_slots, wall_ms_per_step=wall * 1e3 / steps,
@@ -1980,6 +2032,9 @@ def decode_split(engine, prefix, steps=3):
                device_ms_per_step={k: v / steps for k, v in groups.items()},
                weight_read_gb_per_step=weight_bytes / 1e9,
                weight_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    if n_cross:
+        row.update(cross_attention_calls_per_step=n_cross / steps,
+                   cross_attention_ms_per_step=cross_us / 1e3 / steps)
     if engine.cfg.kv_quant == "int8":
         # one layer's cache dequantized alone, as cache_kv does it
         layer = {k: t[0] for k, t in engine.cache[0]["b0"]["attn"].items()}
@@ -2236,6 +2291,276 @@ def deepseek_path(dev):
                       after_traffic=after_traffic)
 
 
+# --------------------------------------------------------------------------
+# phase 12: whisper-base, the encoder-decoder at full width
+# --------------------------------------------------------------------------
+WHISPER = "whisper-base"
+# written in PERF.md before the phase's first run on the card
+WHISPER_PREDICTED = {"init_peak_memory_gb": 0.25,
+                     "cache_gb": 0.124,
+                     "peak_memory_gb": [1.2, 2.0],
+                     "phase_wall_s": [20.0, 60.0]}
+WHISPER_CLIPS = 4                # one clip a slot
+WHISPER_NEW = 32                 # new tokens a request
+WHISPER_DECODE_EVERY = 7         # one decode call in 7 held on the path
+WHISPER_EMBED_PAIRS = 64         # (text, clip) pairs of the embed check
+WHISPER_EMBED_BUCKET = 128
+
+
+def whisper_frames(cfg, dev, n, seed):
+    """``n`` clips of N(0, 1) frame embeddings (n, encoder_seq, d) in the
+    compute dtype, as the JAX package's ``make_batch`` feeds the stubbed
+    audio frontend."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, cfg.encoder_seq, cfg.d_model), generator=g,
+                       device=dev).to(cfg.compute_torch_dtype)
+
+
+def whisper_tokens(cfg, texts, dev):
+    """Byte tokens of ``texts`` (the local providers' tokenizer), padded
+    with -1 to the embed bucket."""
+    from repro_torch.core import LocalTorchProvider
+    toks = torch.full((len(texts), WHISPER_EMBED_BUCKET), -1,
+                      dtype=torch.int32)
+    for i, t in enumerate(texts):
+        ids = LocalTorchProvider._tokenize(t, cfg.vocab_size)
+        ids = ids[:WHISPER_EMBED_BUCKET]
+        toks[i, :len(ids)] = torch.tensor(ids)
+    return toks.to(dev)
+
+
+def _cross_kv(cache):
+    return [t for stage in cache for block in stage.values()
+            for t in block["xattn"].values()]
+
+
+def whisper_embed_vs_plain(cfg, params, dev):
+    """The embed step over 64 (text, clip) pairs through the kernels and
+    through flash attention's plain version (encoder and decoder), 16
+    pairs a call (the plain version's scores of 16 clips take 1.2 GB), by
+    min cosine."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.serving.steps import make_embed_step
+    step = make_embed_step(cfg)
+    rng = np.random.default_rng(SEED + 43)
+    texts = passages(rng, WHISPER_EMBED_PAIRS, 90, 129)
+    frames = whisper_frames(cfg, dev, WHISPER_EMBED_PAIRS, SEED + 44)
+    toks = whisper_tokens(cfg, texts, dev)
+    kern, plain = [], []
+    for i in range(0, WHISPER_EMBED_PAIRS, 16):
+        batch = {"tokens": toks[i:i + 16], "frames": frames[i:i + 16]}
+        kern.append(step(params, batch))
+        with mock.patch.object(L.flash_ops, "flash_attention", attention_ref):
+            plain.append(step(params, batch))
+    kern, plain = torch.cat(kern), torch.cat(plain)
+    cos = float((kern * plain).sum(dim=-1).min())
+    log(phase="whisper_embed_vs_plain", pairs=WHISPER_EMBED_PAIRS,
+        bucket=WHISPER_EMBED_BUCKET, min_cosine=cos,
+        min_cosine_bound=1 - WHISPER_EMBED_COS_GAP, max_abs_err=max_err(kern, plain))
+    check(torch.isfinite(kern).all().item()
+          and cos > 1 - WHISPER_EMBED_COS_GAP,
+          f"whisper embeddings differ from the plain path (cos {cos})")
+
+
+def whisper_teacher_forcing(cfg, params, frames):
+    """In f32 at full width: ``prefill`` over 2 clips and 13 tokens, then 3
+    decode steps, against ``forward_train``'s teacher-forced logits over
+    the same 16 tokens (the JAX package's own test of every config,
+    ``tests/test_models.py``), at F32_LOGITS_TOL."""
+    from repro_torch.models import model as M
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = _map(torch.Tensor.float, params)
+    f32 = frames[:2].float()
+    g = torch.Generator(device=f32.device).manual_seed(SEED + 45)
+    toks = torch.randint(0, 256, (2, 16), generator=g, device=f32.device,
+                         dtype=torch.int32)
+    full, _ = M.forward_train(cfg32, p32, {"tokens": toks, "frames": f32})
+    lg, cache, pos = M.prefill(cfg32, p32, {"tokens": toks[:, :13],
+                                            "frames": f32}, 24)
+    errs = [max_err(lg[:, -1], full[:, 12])]
+    for i in range(3):
+        lg, cache = M.decode_step(cfg32, p32, toks[:, 13 + i:14 + i], cache,
+                                  pos + i)
+        errs.append(max_err(lg[:, 0], full[:, 13 + i]))
+    del p32, cache
+    torch.cuda.empty_cache()
+    log(phase="whisper_f32_prefill_decode_vs_teacher_forcing",
+        max_abs_err=errs, atol=F32_LOGITS_TOL, logit_scale=float(
+            full.abs().max()))
+    check(torch.isfinite(full).all().item() and max(errs) < F32_LOGITS_TOL,
+          f"whisper f32 prefill/decode differ from teacher forcing: {errs}")
+
+
+def whisper_path(dev):
+    """Phase 12: whisper-base (6 encoder and 6 decoder layers, d 512, 8
+    heads of 64, LayerNorm, GELU MLP, V 51,865 tied) at full width, served
+    as the JAX package serves it.  A ``ServingEngine`` of 4 slots x 2,048
+    first serves 2 raw text requests on its default cache (cross-attention
+    over zero keys and values); its ``embed_batch``, whose requests carry
+    no frames, raises ``KeyError: 'frames'`` (ROADMAP C.15).  Then the
+    cache is replaced by ``encode_for_cache`` of 4 clips (the encoder:
+    flash attention without the causal mask, once a layer) and 8 requests
+    of 32 new tokens run on the 4 slots (4 prompts of 4 tokens, then 4 of
+    40-100, whose chunked prefill runs over the cross cache in reused
+    slots), and the embed step runs once over 4 (text, clip) pairs (flash
+    attention in each encoder and decoder layer).  Every flash call and
+    one decode call in 7 of that path are held against the plain version;
+    then a decode step, a 64-pair embed batch and, in f32, prefill and
+    decode against teacher forcing; the decode step's device split; and
+    each request against its run in a fresh engine whose first slot holds
+    the same clip."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.steps import make_embed_step
+
+    cfg = get_config(WHISPER)
+    slots, context = WHISPER_CLIPS, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    log(phase="whisper_weights", arch=cfg.name, params=cfg.num_params(),
+        encoder_layers=cfg.num_encoder_layers, layers=cfg.num_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab_size,
+        encoder_seq=cfg.encoder_seq,
+        weight_gb=sum(t.numel() * t.element_size()
+                      for t in _tensors(params)) / 1e9,
+        seconds=time.perf_counter() - t_phase,
+        init_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        predicted_init_peak_memory_gb=WHISPER_PREDICTED[
+            "init_peak_memory_gb"])
+    frames = whisper_frames(cfg, dev, WHISPER_CLIPS, SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    text_prompts = [[int(t) for t in rng.integers(0, 256, n)]
+                    for n in rng.integers(40, 101, 2)]
+    clip_prompts = [[int(t) for t in rng.integers(0, 256, n)]
+                    for n in [4] * slots + list(rng.integers(40, 101, slots))]
+    embed_texts = passages(rng, WHISPER_CLIPS, 90, 129)
+    engine = ServingEngine(cfg, n_slots=slots, max_context=context,
+                           device=dev, params=params)
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in _tensors(engine.cache)) / 1e9
+    embed_step = make_embed_step(cfg)
+    counts = _attention_counts()
+    flash = HeldKernel(counts["flash_attention"], attention_ref)
+    decode = HeldKernel(counts["decode_attention"], decode_attention_ref,
+                        every=WHISPER_DECODE_EVERY)
+
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(L.flash_ops, "flash_attention", flash), \
+            mock.patch.object(L.decode_ops, "decode_attention", decode), \
+            mock.patch.object(M, "decode_step", wraps=M.decode_step) as dec:
+        # text on the default cache, as the JAX engine serves it
+        text = [engine.submit(p, max_new_tokens=WHISPER_NEW)
+                for p in text_prompts]
+        engine.run_until_idle()
+        zero_cross = not any(t.any().item() for t in _cross_kv(engine.cache))
+        embed_error = None
+        try:
+            engine.embed_batch([[1, 2, 3]])
+        except KeyError as e:
+            embed_error = e.args[0]
+        # audio: the 4 clips' cross-attention cache, then 8 requests
+        enc_cache = M.encode_for_cache(cfg, params, frames, slots, context)
+        engine.cache = enc_cache
+        reqs = [engine.submit(p, max_new_tokens=WHISPER_NEW)
+                for p in clip_prompts]
+        engine.run_until_idle()
+        emb = embed_step(params, {"tokens": whisper_tokens(cfg, embed_texts,
+                                                           dev),
+                                  "frames": frames})
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    decode_steps = dec.call_count
+    dec.reset_mock()            # its recorded calls hold the engine's cache
+    peak = torch.cuda.max_memory_allocated()
+    held = {"flash_attention": flash.read(), "decode_attention": decode.read()}
+
+    check(zero_cross, "whisper: the default cache's cross K/V are not zero")
+    check(embed_error == "frames", f"whisper: embed_batch without frames "
+          f"raised {embed_error!r}, not KeyError('frames')")
+    check(all(r.finished and len(r.generated) == WHISPER_NEW
+              for r in text + reqs),
+          f"whisper requests generated {WHISPER_NEW} tokens each")
+    slots_used = [r.slot for r in reqs]
+    check(slots_used == list(range(slots)) * 2,
+          f"whisper: each slot serves two clip requests: {slots_used}")
+    check(emb.shape == (WHISPER_CLIPS, cfg.d_model)
+          and torch.isfinite(emb).all().item()
+          and torch.allclose(emb.norm(dim=-1), torch.ones_like(emb[:, 0]),
+                             atol=1e-3),
+          "whisper embeddings are finite unit vectors")
+    per_embed = cfg.num_encoder_layers + cfg.num_layers
+    expected = {"flash_attention": cfg.num_encoder_layers + per_embed,
+                "decode_attention": cfg.num_layers * decode_steps}
+    log(phase="whisper_path", arch=cfg.name, slots=slots,
+        max_context=context, cache_gb=cache_gb,
+        predicted_cache_gb=WHISPER_PREDICTED["cache_gb"],
+        text_requests=len(text), clip_requests=len(reqs),
+        prompt_tokens=[len(p) for p in text_prompts + clip_prompts],
+        clip_slots=slots_used, zero_cross_on_default_cache=zero_cross,
+        embed_batch_without_frames_raises=f"KeyError({embed_error!r})",
+        embed_pairs=WHISPER_CLIPS, engine_steps=engine.steps,
+        decode_steps=decode_steps, wall_s=wall, peak_memory_gb=peak / 1e9,
+        predicted_peak_memory_gb=WHISPER_PREDICTED["peak_memory_gb"],
+        launches=launches, expected_launches=expected,
+        launches_per_encode=cfg.num_encoder_layers,
+        launches_per_embed_step=per_embed,
+        launches_per_decode_step=cfg.num_layers)
+    log(phase="whisper_kernels_vs_plain", atol=TOLS[torch.bfloat16],
+        decode_every=WHISPER_DECODE_EVERY, **held)
+    for name, n in launches.items():
+        check(n > 0 and n == expected[name],
+              f"whisper: {name} launched {n} times, not {expected[name]}")
+    for name, row in held.items():
+        check(row["ok"], f"whisper: a held {name} call differs from its "
+              f"plain version: {row}")
+    check(held["flash_attention"]["held"] == launches["flash_attention"],
+          "whisper: not every flash call was held")
+
+    compare_decode_rounding(engine, "whisper_")
+    decode_split(engine, "whisper_")
+    whisper_embed_vs_plain(cfg, params, dev)
+    whisper_teacher_forcing(cfg, params, frames)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # each request against its run alone in a fresh engine whose first
+    # slot holds the same clip's cross K/V (the same tensors, rolled)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    same = []
+    for r, p in zip(reqs, clip_prompts):
+        fresh = ServingEngine(cfg, n_slots=slots, max_context=context,
+                              device=dev, params=params)
+        for t, src in zip(_cross_kv(fresh.cache), _cross_kv(enc_cache)):
+            t.copy_(torch.roll(src, -r.slot, dims=1))
+        same.append(fresh.generate(p, max_new_tokens=WHISPER_NEW)
+                    == r.generated)
+        del fresh
+    log(phase="whisper_reused_slots", same_as_alone=same,
+        seconds=time.perf_counter() - t1,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(all(same), f"whisper: a request differs from its run in a fresh "
+          f"engine holding the same clip: {same}")
+    log(phase="whisper_phase", wall_s=time.perf_counter() - t_phase,
+        predicted_phase_wall_s=WHISPER_PREDICTED["phase_wall_s"])
+    return launches
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2316,10 +2641,13 @@ def main() -> int:
     qwen = qwen_path(dev)
     free_device("qwen_cut")
     deepseek = deepseek_path(dev)
+    free_device("deepseek")
+    whisper = whisper_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
-               GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek}
+               GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek,
+               WHISPER: whisper}
     # the same kernel at other paths' shapes, by path
     wider = {"flash_attention": {RGEMMA: rg_flash, **{
                  arch: rows[0] for arch, rows in dense.items()}},

@@ -1,9 +1,9 @@
 """Architecture config registry: ``get_config(arch)`` / ``list_archs()``.
 
 olmo-1b, falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
-qwen1.5-32b, deepseek-moe-16b and mixtral-8x7b are ported so far; the
-other architectures of the JAX package raise a ``KeyError`` that says so
-(ROADMAP.md, queue A).
+qwen1.5-32b, deepseek-moe-16b, mixtral-8x7b and whisper-base are ported
+so far; the other architecture of the JAX package raises a ``KeyError``
+that says so (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -19,10 +19,11 @@ _ARCHS = {
     "qwen1.5-32b": "qwen15_32b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "whisper-base": "whisper_base",
 }
 
 # architectures of the JAX package that the port does not serve yet
-NOT_YET_PORTED = ("whisper-base", "phi-3-vision-4.2b")
+NOT_YET_PORTED = ("phi-3-vision-4.2b",)
 
 
 def list_archs():

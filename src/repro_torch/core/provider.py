@@ -212,7 +212,10 @@ class LocalTorchProvider(BaseProvider):
     provider independent of any external vocabulary.  Generation is
     greedy.  ``device=None`` serves on the GPU and raises without one;
     ``params`` (``repro_torch.params``) give the weights, else they are
-    drawn from a fixed seed.
+    drawn from a fixed seed.  An encoder-decoder (whisper-base) completes
+    text against its engine's zero cross-attention cache and cannot embed
+    (``KeyError: 'frames'``), as ``LocalJaxProvider`` (ROADMAP.md, C.15);
+    audio is served through ``engine.cache`` (``serving/engine.py``).
     """
 
     def __init__(self, arch: str = "olmo-1b", *, use_smoke_config=True,

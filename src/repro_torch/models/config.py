@@ -3,14 +3,17 @@
 
 The same frozen dataclass and field names as the JAX package, for the
 fields the dense decoder, the MoE FFN, the Mamba-1 block, the RG-LRU
-block and the int8 KV cache read and the features the port still
-refuses.
+block, the encoder-decoder (whisper) and the int8 KV cache read and the
+feature the port still refuses (the vision frontend).
 Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
-``remat*``, ``ssm_fuse``, cost-probe overrides, sharding padding,
-``moe_gathered_spec``) are dropped: the port picks its kernels by the
-device a tensor lives on, not by a flag.  ``router_aux_weight``, which
-only the training loss reads, comes with ``loss_fn`` (``ROADMAP.md``,
-A.13).
+``remat*``, ``ssm_fuse``, the cost-probe ``stages_override`` and
+``enc_stages_override``, sharding padding, ``moe_gathered_spec``) are
+dropped: the port picks its kernels by the device a tensor lives on, not
+by a flag.  ``router_aux_weight``, which only the training loss reads,
+comes with ``loss_fn`` (``ROADMAP.md``, A.13).
+
+The audio frontend is the ``frames`` input (B, encoder_seq, d_model) of
+an encoder-decoder: the JAX package stubs the conv stem the same way.
 
 Layer-kind strings used in ``pattern``:
   "attn"   full (global) causal self-attention
@@ -73,9 +76,11 @@ class ModelConfig:
     dt_rank: int = 0
     scan_chunk: int = 256            # chunk of the stateful linear scan
     rglru_blocks: int = 16           # block-diagonal gate blocks
-    # ---- features not yet ported (check_supported refuses them) ----
+    # ---- encoder-decoder / frontends ----
     is_encoder_decoder: bool = False
-    frontend: str = ""               # "" | "audio" | "vision"
+    num_encoder_layers: int = 0
+    encoder_seq: int = 0             # whisper: 1500 frames
+    frontend: str = ""               # "" | "audio" | "vision" (refused)
     # ---- KV cache ----
     kv_quant: str = "none"           # none | int8 (quantized KV cache)
     # ---- numerics ----
@@ -117,6 +122,11 @@ class ModelConfig:
             out.append((p[:rem], 1))
         return tuple(out)
 
+    def encoder_stages(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+        if not self.is_encoder_decoder:
+            return ()
+        return ((("attn",), self.num_encoder_layers),)
+
     def moe_capacity(self, tokens_per_group: int) -> int:
         """Per-expert slot capacity for a dispatch group of given size."""
         ideal = tokens_per_group * self.top_k / self.num_experts
@@ -156,6 +166,10 @@ class ModelConfig:
         for pattern, reps in self.stages():
             for kind in pattern:
                 n += per_kind[kind] * reps
+        if self.is_encoder_decoder:
+            enc_attn = 4 * d * d
+            n += self.num_encoder_layers * (enc_attn + ffn)
+            n += self.num_layers * enc_attn          # decoder cross-attention
         return n
 
     def active_params(self) -> int:
@@ -177,9 +191,7 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig):
     """Raise for what the port does not run yet (ROADMAP.md, queue A)."""
     missing = []
-    if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder cross-attention")
-    if cfg.frontend:
+    if cfg.frontend not in ("", "audio"):
         missing.append(f"{cfg.frontend} frontend")
     if cfg.kv_quant not in KV_QUANTS:
         missing.append(f"kv_quant={cfg.kv_quant!r}")

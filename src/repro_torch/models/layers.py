@@ -1,5 +1,5 @@
-"""Layer primitives of the dense decoder, the Mamba-1 block and the RG-LRU
-block (port of ``repro/models/layers.py``).
+"""Layer primitives of the dense decoder, the Mamba-1 block, the RG-LRU
+block and the encoder-decoder (port of ``repro/models/layers.py``).
 
 Plain functions on tensors with the JAX package's parameter layout
 (``wq`` is (d, H, hd), ``wo`` is (H, hd, d), ``in_proj`` is (d, 2 di),
@@ -20,12 +20,16 @@ back, projections as bf16 products, the scans in f32.  The int8 KV cache
 dequantizes the cache before attention reads it, as the JAX package does.
 The MoE FFN (``moe_apply``) dispatches as the JAX package does, group by
 group with capacity drops, in plain tensor operations (the JAX package
-has no kernel for it either).  Cross-attention is not ported yet
-(``config.check_supported``).
+has no kernel for it either).  The encoder-decoder's encoder runs its
+self-attention through ``kernels.flash_attention`` without the causal
+mask; the decoder's cross-attention over the encoder's keys and values
+(``cross_attention``) is the plain chunked attention, as the JAX package
+computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
+import math
 import numbers
 
 import torch
@@ -85,7 +89,7 @@ def rms_head_norm(scale, x):
 
 
 # --------------------------------------------------------------------------
-# rotary positions
+# rotary / sinusoidal positions
 # --------------------------------------------------------------------------
 def rope_apply(x, positions, theta: float):
     """x: (B, S, H, hd), positions: (B, S) or (S,) int."""
@@ -101,6 +105,18 @@ def rope_apply(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_pos(seq: int, d: int, offset=0, dtype=torch.bfloat16,
+                 device=None):
+    """(seq, d) sinusoidal positions: sines then cosines of f32 angles,
+    cast to ``dtype`` (the encoder's input positions)."""
+    pos = torch.arange(seq, dtype=F32, device=device) + offset
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=F32, device=device)
+                      * (math.log(10_000.0) / max(half - 1, 1)))
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -198,9 +214,11 @@ def normal_init(shape, std, dtype, generator, device):
     return out
 
 
-def init_attention(cfg: ModelConfig, generator, lead=(), device=None):
+def init_attention(cfg: ModelConfig, generator, lead=(), device=None,
+                   cross: bool = False):
     """Attention weights (stacked over ``lead``) drawn like the JAX init:
-    N(0, 1) scaled by fan-in^-0.5, cast to ``param_dtype``."""
+    N(0, 1) scaled by fan-in^-0.5, cast to ``param_dtype``.  A decoder's
+    cross-attention (``cross``) has no qkv bias."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     dt = cfg.param_torch_dtype
@@ -212,7 +230,7 @@ def init_attention(cfg: ModelConfig, generator, lead=(), device=None):
         "wo": normal_init((*lead, H, hd, d), (H * hd) ** -0.5, dt, generator,
                       device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((*lead, H, hd), dtype=dt, device=device)
         p["bk"] = torch.zeros((*lead, KH, hd), dtype=dt, device=device)
         p["bv"] = torch.zeros((*lead, KH, hd), dtype=dt, device=device)
@@ -359,6 +377,20 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off):
                           window=_window(cfg, kind), q_offset=off_b,
                           block_k=cfg.attn_block_k)
     return attn_out(p, o), cache
+
+
+def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v):
+    """Decoder cross-attention over the encoder's keys and values (B, Se,
+    KH, hd), no rope: the plain chunked attention without a mask."""
+    q = _project(x, p["wq"])
+    o = chunked_attention(q, enc_k, enc_v, causal=False,
+                          block_k=cfg.attn_block_k)
+    return attn_out(p, o)
+
+
+def encode_cross_kv(cfg: ModelConfig, p, enc_out):
+    """The cross-attention keys and values of the encoder's output."""
+    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
 
 
 # --------------------------------------------------------------------------

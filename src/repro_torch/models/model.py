@@ -1,6 +1,7 @@
-"""Stack assembly for the dense and MoE decoders, the Mamba-1 stack and
-the Griffin hybrid (RG-LRU and local attention): train forward, prefill,
-chunked prefill and decode (port of ``repro/models/model.py``).
+"""Stack assembly for the dense and MoE decoders, the Mamba-1 stack, the
+Griffin hybrid (RG-LRU and local attention) and the encoder-decoder
+(whisper): train forward, prefill, chunked prefill, decode and the
+encoder's cross-attention cache (port of ``repro/models/model.py``).
 
 Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
 "stages": [{"b0": {...}, ...}, ...]}`` with each stage's weights stacked
@@ -11,9 +12,17 @@ attention layer (int8, beside f32 (repeats, B, S, KH, 1) ``k_scale`` and
 ``v_scale``, when ``kv_quant="int8"``), (repeats, B, cw-1, di) conv and (repeats, B, di, N) ssm
 state of a Mamba layer, (repeats, B, cw-1, di) conv and (repeats, B, di)
 f32 ``h`` of an RG-LRU layer.  Decode and chunked prefill write them in
-place and return them.
+place and return them.  An encoder-decoder's decoder layer also holds the
+encoder's cross-attention keys and values, (repeats, B, encoder_seq, KH,
+hd) ``xattn`` ``k`` and ``v`` in the compute dtype (also on the int8
+cache, as in the JAX package): zero in a fresh cache, written by
+``prefill`` and ``encode_for_cache``, and read in place by decode and
+chunked prefill.  ``reset_recurrent_rows`` leaves them, so a slot keeps
+its clip across requests, as the JAX engine's slots do.
 
-Batch dict convention: ``tokens`` (B, S) int token ids (-1 pads).
+Batch dict convention: ``tokens`` (B, S) int token ids (-1 pads);
+``frames`` (B, encoder_seq, d_model) the audio frontend's stub embeddings
+(an encoder-decoder's encoder input, as in the JAX package).
 Parameters are drawn by ``repro_torch.params.init_params``.
 """
 
@@ -45,9 +54,13 @@ def _stack(trees):
 # single-layer application (shared by train / prefill / decode / extend)
 # --------------------------------------------------------------------------
 def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
-                pos=None, cache=None, causal=True, cache_len=0):
+                pos=None, cache=None, enc_out=None, causal=True,
+                cache_len=0):
     """Returns (x, new_cache, aux): aux is the MoE layer's router loss,
-    None for a layer without one."""
+    None for a layer without one.  A layer with ``xattn`` (an
+    encoder-decoder's decoder) attends over the encoder after its
+    self-attention residual: over ``enc_out``'s keys and values in train
+    and prefill mode, over the cache's ``xattn`` in decode and extend."""
     if kind == "mamba":
         return (*_apply_mamba(cfg, p, x, mode=mode, cache=cache), None)
     if kind == "rec":
@@ -71,6 +84,15 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
             new_attn = {name: F.pad(t, pad) for name, t in
                         L.cache_entries(cfg, k, v).items()}
     x = x + y
+    if "xattn" in p:
+        hx = L.norm_apply(cfg, p.get("ln_x", {}), x)
+        if mode in ("decode", "extend"):
+            ek, ev = cache["xattn"]["k"], cache["xattn"]["v"]
+        else:
+            ek, ev = L.encode_cross_kv(cfg, p["xattn"], enc_out)
+        x = x + L.cross_attention(cfg, p["xattn"], hx, ek, ev)
+        if mode == "prefill":
+            new_cache["xattn"] = {"k": ek, "v": ev}
     h2 = L.norm_apply(cfg, p.get("ln2", {}), x)
     aux = None
     if "moe" in p:
@@ -120,7 +142,8 @@ def _apply_rec(cfg: ModelConfig, p, x, *, mode: str, cache):
 # stage execution (a loop over stacked repeats)
 # --------------------------------------------------------------------------
 def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
-                positions, pos=None, caches=None, causal=True, cache_len=0):
+                positions, pos=None, caches=None, enc_out=None, causal=True,
+                cache_len=0):
     """pattern_list: list of (pattern, repeats) matching stages_params.
     Returns (x, caches, aux): in decode/extend the given caches (written
     in place), in prefill new ones, in train None per stage; aux is the
@@ -141,7 +164,7 @@ def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
                     cfg, kind, lp[f"b{j}"], x, mode=mode,
                     positions=positions, pos=pos,
                     cache=None if lc is None else lc[f"b{j}"],
-                    causal=causal, cache_len=cache_len)
+                    enc_out=enc_out, causal=causal, cache_len=cache_len)
                 if aux is not None:
                     total_aux = aux if total_aux is None else total_aux + aux
             rep_caches.append(ncs)
@@ -182,6 +205,31 @@ def _assemble_input(cfg: ModelConfig, params, batch):
     return x, positions
 
 
+def _run_encoder(cfg: ModelConfig, params, frames):
+    """The encoder over ``frames`` (B, encoder_seq, d): sinusoidal
+    positions added in the compute dtype, its stages in train mode
+    without the causal mask (flash attention, rope as in every attention
+    layer), its final norm."""
+    x = frames.to(cfg.compute_torch_dtype)
+    x = x + L.sinusoid_pos(x.shape[1], cfg.d_model, dtype=x.dtype,
+                           device=x.device)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    enc = params["encoder"]
+    x, _, _ = _run_stages(cfg, enc["stages"], list(cfg.encoder_stages()), x,
+                          mode="train", positions=positions, causal=False)
+    return L.norm_apply(cfg, enc.get("final_norm", {}), x)
+
+
+def _encoder_output(cfg: ModelConfig, params, batch):
+    """An encoder-decoder's encoder output over ``batch["frames"]`` (a
+    ``KeyError`` without them, as in the JAX package), else None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return _run_encoder(cfg, params, batch["frames"])
+
+
 # --------------------------------------------------------------------------
 # public entry points
 # --------------------------------------------------------------------------
@@ -189,9 +237,11 @@ def forward_train(cfg: ModelConfig, params, batch):
     """Full-sequence teacher-forced forward. Returns (logits, aux); aux is
     the MoE layers' summed router loss, as the JAX package's, 0 for a
     stack without MoE layers."""
+    enc_out = _encoder_output(cfg, params, batch)
     x, positions = _assemble_input(cfg, params, batch)
     x, _, aux = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
-                            mode="train", positions=positions)
+                            mode="train", positions=positions,
+                            enc_out=enc_out)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=x.device)
@@ -214,13 +264,19 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
         shape = (repeats, B, cache_len, KH, hd)
         if cfg.kv_quant == "int8":
             scale = (*shape[:-1], 1)
-            return {"attn": {
+            c = {"attn": {
                 "k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
                 "k_scale": torch.zeros(scale, dtype=F32, device=device),
                 "v_scale": torch.zeros(scale, dtype=F32, device=device)}}
-        return {"attn": {"k": torch.zeros(shape, dtype=dt, device=device),
-                         "v": torch.zeros(shape, dtype=dt, device=device)}}
+        else:
+            c = {"attn": {"k": torch.zeros(shape, dtype=dt, device=device),
+                          "v": torch.zeros(shape, dtype=dt, device=device)}}
+        if cfg.is_encoder_decoder:
+            xs = (repeats, B, cfg.encoder_seq, KH, hd)
+            c["xattn"] = {"k": torch.zeros(xs, dtype=dt, device=device),
+                          "v": torch.zeros(xs, dtype=dt, device=device)}
+        return c
     return [{f"b{j}": layer_cache(kind, repeats)
              for j, kind in enumerate(pattern)}
             for pattern, repeats in cfg.stages()]
@@ -229,7 +285,8 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
 def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
     """Zero one batch row of every recurrent cache leaf (the conv and ssm
     state of a Mamba layer, the conv and h state of an RG-LRU layer);
-    attention caches are masked by position and stay."""
+    attention caches are masked by position and stay, and so do an
+    encoder-decoder's cross-attention keys and values (the slot's clip)."""
     for stage in cache:
         for block in stage.values():
             for kind in ("mamba", "rec"):
@@ -239,10 +296,11 @@ def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
 
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     """Process the prompt; returns (last-token logits, cache, next_pos)."""
+    enc_out = _encoder_output(cfg, params, batch)
     x, positions = _assemble_input(cfg, params, batch)
     x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),
                                x, mode="prefill", positions=positions,
-                               cache_len=cache_len)
+                               enc_out=enc_out, cache_len=cache_len)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     logits = _logits(cfg, params, x[:, -1:])
     return logits, caches, x.shape[1]
@@ -259,6 +317,26 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, cache, off):
                                caches=cache)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     return _logits(cfg, params, x), caches
+
+
+def encode_for_cache(cfg: ModelConfig, params, frames, B: int,
+                     cache_len: int):
+    """Enc-dec: run the encoder over ``frames`` (B, encoder_seq, d) and
+    return a fresh cache (on the frames' device) whose decoder layers hold
+    the encoder's cross-attention keys and values, the self-attention
+    cache zero (pos=0)."""
+    cache = init_cache(cfg, B, cache_len, frames.device)
+    enc_out = _run_encoder(cfg, params, frames)
+    for (pattern, repeats), sp, sc in zip(cfg.stages(), params["stages"],
+                                          cache):
+        for r in range(repeats):
+            for j, kind in enumerate(pattern):
+                if kind in ATTN_KINDS:
+                    ek, ev = L.encode_cross_kv(
+                        cfg, _index(sp[f"b{j}"]["xattn"], r), enc_out)
+                    sc[f"b{j}"]["xattn"]["k"][r] = ek
+                    sc[f"b{j}"]["xattn"]["v"][r] = ev
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos):

@@ -21,9 +21,11 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
 
 
-def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device):
+def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device,
+                cross: bool = False):
     """One layer's weights, stacked over ``reps`` repeats (the JAX
-    package's ``_init_layer`` keys)."""
+    package's ``_init_layer`` keys); an attention layer of an
+    encoder-decoder's decoder (``cross``) adds ``ln_x`` and ``xattn``."""
     d = cfg.d_model
     p = {"ln1": L.init_norm(cfg, d, (reps,), device)}
     if kind == "mamba":
@@ -33,6 +35,10 @@ def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device):
         p["rec"] = L.init_rglru(cfg, generator, (reps,), device)
     else:
         p["attn"] = L.init_attention(cfg, generator, (reps,), device)
+        if cross:
+            p["ln_x"] = L.init_norm(cfg, d, (reps,), device)
+            p["xattn"] = L.init_attention(cfg, generator, (reps,), device,
+                                          cross=True)
     p["ln2"] = L.init_norm(cfg, d, (reps,), device)
     if kind != "rec" and cfg.num_experts:
         p["moe"] = L.init_moe(cfg, generator, (reps,), device)
@@ -41,27 +47,37 @@ def _init_layer(cfg: ModelConfig, kind: str, generator, reps: int, device):
     return p
 
 
+def _init_stages(cfg: ModelConfig, stages, generator, device, cross: bool):
+    return [{f"b{j}": _init_layer(cfg, kind, generator, reps, device, cross)
+             for j, kind in enumerate(pattern)}
+            for pattern, reps in stages]
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Weights at the JAX init's shapes and scales (N(0, 1) times
     fan-in^-0.5, cast to ``param_dtype``; the JAX init's constants where
     it has them), drawn from ``generator``, which must live on
-    ``device``."""
+    ``device``.  An encoder-decoder adds ``{"encoder": {"stages",
+    "final_norm"}}`` and cross-attention in each decoder layer."""
     check_supported(cfg)
     Vp, d = cfg.padded_vocab, cfg.d_model
     params = {
         "embed": L.normal_init((Vp, d), d ** -0.5, cfg.param_torch_dtype,
                            generator, device),
         "final_norm": L.init_norm(cfg, d, device=device),
-        "stages": [
-            {f"b{j}": _init_layer(cfg, kind, generator, reps, device)
-             for j, kind in enumerate(pattern)}
-            for pattern, reps in cfg.stages()
-        ],
+        "stages": _init_stages(cfg, cfg.stages(), generator, device,
+                               cross=cfg.is_encoder_decoder),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal_init((d, Vp), d ** -0.5,
                                       cfg.param_torch_dtype, generator,
                                       device)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "stages": _init_stages(cfg, cfg.encoder_stages(), generator,
+                                   device, cross=False),
+            "final_norm": L.init_norm(cfg, d, device=device),
+        }
     return params
 
 

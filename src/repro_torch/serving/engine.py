@@ -23,6 +23,16 @@ occupant's state, and whatever idle decode steps added to it, would
 otherwise carry into the new request.  A KV cache needs no reset: its
 stale rows lie past the new request's positions and are masked.  (The
 JAX engine does not reset it; ROADMAP.md, queue C.)
+
+An encoder-decoder (whisper-base) is served as the JAX engine serves it.
+The cache starts with zero cross-attention keys and values, so a text
+request's cross-attention adds nothing, and ``embed_batch``, whose
+requests carry no frames, raises ``KeyError: 'frames'`` (ROADMAP.md,
+C.15).  To serve requests over audio, put ``models.model.encode_for_cache(
+cfg, params, frames, n_slots, max_context)`` in ``engine.cache`` before
+submitting: slot i then holds clip i for every request admitted to it
+(admission resets only recurrent rows).  The engine takes no frames of
+its own, as the JAX engine takes none.
 """
 
 from __future__ import annotations

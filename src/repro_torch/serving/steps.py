@@ -24,13 +24,18 @@ def _sample(cfg: ModelConfig, logits):
 
 def make_embed_step(cfg: ModelConfig):
     """Mean-pooled final hidden state as the text embedding
-    (llm_embedding).  Token -1 pads and is left out of the mean."""
+    (llm_embedding).  Token -1 pads and is left out of the mean.  An
+    encoder-decoder runs its encoder over ``batch["frames"]`` first, as
+    the JAX package does; a batch of tokens alone raises ``KeyError:
+    'frames'`` there and here (``ROADMAP.md``, C.15)."""
 
     def embed_step(params, batch):
         # run the decoder stack in train (full-sequence) mode, no logits
+        enc_out = M._encoder_output(cfg, params, batch)
         x, positions = M._assemble_input(cfg, params, batch)
         x, _, _ = M._run_stages(cfg, params["stages"], list(cfg.stages()),
-                                x, mode="train", positions=positions)
+                                x, mode="train", positions=positions,
+                                enc_out=enc_out)
         x = L.norm_apply(cfg, params.get("final_norm", {}), x)
         mask = (batch["tokens"] >= 0).to(F32)
         emb = (x.to(F32) * mask[..., None]).sum(dim=1) / \

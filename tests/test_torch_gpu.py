@@ -13,7 +13,10 @@ retrieval operators order them.  The last case drives the retrieval
 layer's full-ranking branch (a plan's masked ``corpus_filter``) at the
 Query 3 phase's corpus shape.  The MoE FFN, which has no kernel, is
 held on the card against the CPU and against itself (two bf16 calls
-bitwise equal).
+bitwise equal).  The encoder-decoder (whisper-base) runs flash attention
+without the causal mask over 1,500 frames and decode attention at hd 64;
+its smoke config's cross-attention cache and decode step are held on the
+card against the CPU.
 """
 
 import numpy as np
@@ -89,7 +92,8 @@ def assert_topk_ids_match(ids, ref_ids):
      (2, 200, 8, 2, 64, True, 8),        # a window smaller than a tile
      (4, 2048, 16, 8, 256, True, 1024),  # gemma3-12b: G 2, the window cuts
      (64, 128, 32, 8, 128, True, 0),     # granite-8b embed batch: G 4
-     (64, 128, 40, 40, 128, True, 0)])   # qwen1.5-32b embed batch: 40 heads
+     (64, 128, 40, 40, 128, True, 0),    # qwen1.5-32b embed batch: 40 heads
+     (4, 1500, 8, 8, 64, False, 0)])     # whisper-base encoder: 4 clips
 def test_flash_attention_kernel(cuda, B, S, H, KH, hd, causal, window,
                                 dtype):
     rng = np.random.default_rng(0)
@@ -147,11 +151,12 @@ def test_decode_attention_kernel_mqa_hd256(cuda, B, S, window, pos, dtype):
     "H,KH,hd,window,pos",
     [(16, 8, 256, 1024, [2000, 1500, 1100, 37]),   # gemma3-12b, G 2
      (32, 8, 128, 0, [1900, 1024, 300, 37]),       # granite-8b, G 4
-     (40, 40, 128, 0, [1900, 1024, 300, 37])])     # qwen1.5-32b, 40 heads
+     (40, 40, 128, 0, [1900, 1024, 300, 37]),      # qwen1.5-32b, 40 heads
+     (8, 8, 64, 0, [1900, 1024, 300, 37])])        # whisper-base, hd 64
 def test_decode_attention_kernel_dense_widths(cuda, H, KH, hd, window, pos,
                                               dtype):
-    """The dense models' served decode shapes: 4 slots x 2048 positions,
-    gemma3-12b's positions past its window of 1024."""
+    """The dense models' and whisper-base's served decode shapes: 4 slots
+    x 2048 positions, gemma3-12b's positions past its window of 1024."""
     rng = np.random.default_rng(7)
     q = _t(rng, (4, 1, H, hd), dtype, cuda)
     kc = _t(rng, (4, 2048, KH, hd), dtype, cuda)
@@ -559,6 +564,60 @@ def test_moe_decode_step_on_the_card(cuda, dtype):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     else:
         assert torch.equal(out, step())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_cache_and_decode_step_on_the_card(cuda, dtype):
+    """whisper-base's smoke config on the card against the same on the
+    CPU (the weights drawn once on the CPU): ``encode_for_cache`` of 4
+    clips, whose encoder launches the flash kernel once a layer without
+    the causal mask, every cache leaf; then chunked prefill and one decode
+    step over that cache, which launches decode attention once a decoder
+    layer.  Within 1e-4 in f32 and 6e-2 in bf16 (the model tolerances)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    cfg = get_smoke_config("whisper-base").replace(
+        param_dtype=dtype, compute_dtype=dtype)
+    tol = 1e-4 if dtype == "float32" else 6e-2
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    frames = _t(rng, (4, cfg.encoder_seq, cfg.d_model), cfg.compute_torch_dtype,
+                "cpu")
+    toks = torch.from_numpy(rng.integers(0, 256, (4, 16)).astype(np.int32))
+    tok = torch.from_numpy(rng.integers(0, 256, (4, 1)).astype(np.int32))
+    pos = torch.tensor([16, 16, 16, 16], dtype=torch.int32)
+
+    def run(device):
+        p = _to(params, device)
+        cache = M.encode_for_cache(cfg, p, frames.to(device), 4, 64)
+        enc = [t.clone() for st in cache for t in
+               (st["b0"]["xattn"]["k"], st["b0"]["xattn"]["v"])]
+        M.prefill_chunk(cfg, p, toks.to(device), cache, 0)
+        logits, _ = M.decode_step(cfg, p, tok.to(device), cache,
+                                  pos.to(device))
+        return enc, logits
+    flash0 = flash_ops.flash_attention.launches
+    dec0 = decode_ops.decode_attention.launches
+    enc, logits = run(cuda)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == flash0 +         cfg.num_encoder_layers
+    assert decode_ops.decode_attention.launches == dec0 + cfg.num_layers
+    enc_cpu, logits_cpu = run("cpu")
+    for a, b in zip(enc, enc_cpu):
+        assert a.abs().max() > 0
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=tol,
+                                   rtol=tol)
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits.cpu(), logits_cpu, atol=tol, rtol=tol)
 
 
 # ---------------------------------------------------------------------------

@@ -77,9 +77,10 @@ def test_entry_points_default_to_cuda(no_cuda):
 
 
 def test_not_yet_ported_names_four_archs():
-    """Four architectures until the MoE configs were ported; two now."""
+    """Four architectures until the MoE configs were ported, two until the
+    encoder-decoder was; one now."""
     from repro_torch.configs import NOT_YET_PORTED, get_config
-    assert NOT_YET_PORTED == ("whisper-base", "phi-3-vision-4.2b")
+    assert NOT_YET_PORTED == ("phi-3-vision-4.2b",)
     for arch in NOT_YET_PORTED:
         with pytest.raises(KeyError, match="not yet ported"):
             get_config(arch)
@@ -107,6 +108,19 @@ def test_moe_configs_default_to_cuda(no_cuda, arch):
         ServingEngine(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LocalTorchProvider(arch)
+    assert ServingEngine(cfg, device="cpu").device.type == "cpu"
+
+
+def test_encdec_config_defaults_to_cuda(no_cuda):
+    """whisper-base's engine and provider, like every other config's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import LocalTorchProvider
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_smoke_config("whisper-base")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalTorchProvider("whisper-base")
     assert ServingEngine(cfg, device="cpu").device.type == "cpu"
 
 
