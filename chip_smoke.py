@@ -24,8 +24,12 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      of 256, window 1,024), decode attention at each one's heads over 4
      slots x 2048 positions, gemma3-12b's past its window; whisper-base of
      phase 12: flash attention without the causal mask over 4 clips of
-     1,500 frames, 8 heads of 64, against SDPA without a mask, and decode
-     attention at 8 heads of 64), with CUDA-event times of the
+     1,500 frames, 8 heads of 64, against SDPA without a mask, decode
+     attention at 8 heads of 64, and its decoder's causal flash attention
+     over 4 texts of 128; phi-3-vision-4.2b of phase 13: flash attention
+     of a 64-text embed request and of 4 images of 144 patches with 128
+     tokens, decode attention, all at 32 heads of 96), with CUDA-event
+     times of the
      kernel, the plain version and, where one exists, one PyTorch library
      call computing the same function; bounds from the card's peak rates.
      Flash and decode attention and their SDPA yardsticks are timed in
@@ -138,12 +142,25 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      the plain path, prefill and decode in f32 against teacher forcing,
      the decode step's device split, and each request against a fresh
      engine whose slot holds the same clip;
-  13. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  13. whisper-base freed, phi-3-vision-4.2b at full width (32 layers, d
+     3,072, 32 heads of 96: the attention kernels' hd-96 instances), text
+     served as the JAX package serves it, as phase 8 runs granite-8b
+     (flash attention 32 times an embed request, decode attention 32
+     times a decode step); then, on the same weights, 4 random images of
+     144 patch embeddings through the model's entry points (the engine
+     takes no patches, ROADMAP C.16): ``prefill`` over (image, text) rows
+     and 16 greedy decode steps from next_pos = 144 + 64, and the embed
+     step over 4 (text, image) pairs, every flash call and one decode
+     call in 7 held against the plain version; a 16-pair embed batch
+     against the plain path, the decode step's device split, and, the
+     model freed, prefill with patches and decode in f32 against teacher
+     forcing on the config cut to 4 layers;
+  14. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
-     qwen1.5-32b, deepseek-moe-16b, whisper-base; flash and decode
-     attention also with their run keys at each model's shapes), then the
-     card, then the result line.
+     qwen1.5-32b, deepseek-moe-16b, whisper-base, phi-3-vision-4.2b; flash
+     and decode attention also with their run keys at each model's
+     shapes), then the card, then the result line.
 
 Weights are random, drawn from a fixed seed (no checkpoint is needed).
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -552,9 +569,10 @@ def check_decode_rows(dev, flush):
     return olmo + short, rg
 
 
-# the dense models of phases 8-10 and whisper-base of phase 12 at their
-# served widths: (flash attention of an embed request, or of whisper's
-# encoder over 4 clips; decode attention over the engine's 4 x 2048 cache)
+# the dense models of phases 8-10, whisper-base of phase 12 and
+# phi-3-vision-4.2b of phase 13 at their served widths: (flash attention of
+# an embed request, or of whisper's encoder over 4 clips; decode attention
+# over the engine's 4 x 2048 cache)
 DENSE_SHAPES = {
     "granite-8b": (dict(H=32, KH=8, hd=128),
                    dict(H=32, KH=8, hd=128, windows=(0,))),
@@ -569,15 +587,30 @@ DENSE_SHAPES = {
     # the encoder's self-attention over 1,500 frames, no causal mask
     "whisper-base": (dict(B=4, L=1500, H=8, KH=8, hd=64, causal=False),
                      dict(H=8, KH=8, hd=64, windows=(0,))),
+    # 32 heads of 96 (MHA): a 64-text embed request of text alone
+    "phi-3-vision-4.2b": (dict(H=32, KH=32, hd=96),
+                          dict(H=32, KH=32, hd=96, windows=(0,))),
+}
+# flash attention of the embed steps whose shapes the rows above miss, by
+# path key: phi-3-vision's over 4 images of 144 patches and 128 tokens (272
+# positions, no multiple of a tile), whisper-base's causal decoder over 4
+# texts of 128
+EMBED_FLASH_SHAPES = {
+    "phi-3-vision-4.2b_prefix": dict(B=4, L=144 + 128, H=32, KH=32, hd=96),
+    "whisper-base_decoder": dict(B=4, L=128, H=8, KH=8, hd=64),
 }
 
 
 def check_dense_rows(dev, flush):
-    """Phase 2's flash and decode rows at the shapes of phases 8-10 and
-    12: {arch: (flash row, decode row)}."""
-    return {arch: (check_flash(dev, flush, seed=SEED + 10 + i, **fl),
-                   check_decode(dev, flush, seed=SEED + 20 + i, **dec)[0])
-            for i, (arch, (fl, dec)) in enumerate(DENSE_SHAPES.items())}
+    """Phase 2's flash and decode rows at the shapes of phases 8-10, 12
+    and 13: ({arch: (flash row, decode row)}, {path key: flash row} of
+    ``EMBED_FLASH_SHAPES``)."""
+    dense = {arch: (check_flash(dev, flush, seed=SEED + 10 + i, **fl),
+                    check_decode(dev, flush, seed=SEED + 20 + i, **dec)[0])
+             for i, (arch, (fl, dec)) in enumerate(DENSE_SHAPES.items())}
+    embed = {key: check_flash(dev, flush, seed=SEED + 30 + i, **kw)
+             for i, (key, kw) in enumerate(EMBED_FLASH_SHAPES.items())}
+    return dense, embed
 
 
 def check_topk(dev, flush):
@@ -1738,8 +1771,9 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
     the MoE layers' routing for the traffic and the comparisons: the
     dropped assignments by group length are logged (a decode group must
     drop none) and the comparisons log routing flips.  ``predicted``
-    (``init_peak_memory_gb``, ``peak_memory_gb``, ``phase_wall_s``) is
-    logged beside the measured values.  Returns the launches."""
+    (``init_peak_memory_gb``, ``cache_gb``, ``peak_memory_gb``,
+    ``phase_wall_s``) is logged beside the measured values.  Returns the
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.core import (LocalTorchProvider, ModelResource,
                                   build_metaprompt)
@@ -1864,7 +1898,7 @@ def serve_path(dev, arch, prefix, counts, per_embed, per_decode, seed, *,
         peak_memory_gb=peak / 1e9, launches=launches,
         launches_per_embed_request=per_embed,
         launches_per_decode_step=per_decode, **moe,
-        **pred("peak_memory_gb"))
+        **pred("cache_gb"), **pred("peak_memory_gb"))
     for row in moe.get("moe_drops", []):
         check(row["group_tokens"] != engine.n_slots or row["dropped"] == 0,
               f"{arch}: a decode group dropped assignments: {row}")
@@ -2316,15 +2350,14 @@ def whisper_frames(cfg, dev, n, seed):
                        device=dev).to(cfg.compute_torch_dtype)
 
 
-def whisper_tokens(cfg, texts, dev):
-    """Byte tokens of ``texts`` (the local providers' tokenizer), padded
-    with -1 to the embed bucket."""
+def bucket_tokens(cfg, texts, dev, bucket):
+    """Byte tokens of ``texts`` (the local providers' tokenizer), cut to
+    ``bucket`` and padded with -1 to it."""
     from repro_torch.core import LocalTorchProvider
-    toks = torch.full((len(texts), WHISPER_EMBED_BUCKET), -1,
-                      dtype=torch.int32)
+    toks = torch.full((len(texts), bucket), -1, dtype=torch.int32)
     for i, t in enumerate(texts):
         ids = LocalTorchProvider._tokenize(t, cfg.vocab_size)
-        ids = ids[:WHISPER_EMBED_BUCKET]
+        ids = ids[:bucket]
         toks[i, :len(ids)] = torch.tensor(ids)
     return toks.to(dev)
 
@@ -2334,62 +2367,76 @@ def _cross_kv(cache):
             for t in block["xattn"].values()]
 
 
-def whisper_embed_vs_plain(cfg, params, dev):
-    """The embed step over 64 (text, clip) pairs through the kernels and
-    through flash attention's plain version (encoder and decoder), 16
-    pairs a call (the plain version's scores of 16 clips take 1.2 GB), by
-    min cosine."""
+def embed_vs_plain(cfg, params, batches, phase, gap, **note):
+    """The embed step over ``batches`` through the kernels and through
+    flash attention's plain version, by min cosine above 1 - ``gap``."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers as L
     from repro_torch.serving.steps import make_embed_step
     step = make_embed_step(cfg)
-    rng = np.random.default_rng(SEED + 43)
-    texts = passages(rng, WHISPER_EMBED_PAIRS, 90, 129)
-    frames = whisper_frames(cfg, dev, WHISPER_EMBED_PAIRS, SEED + 44)
-    toks = whisper_tokens(cfg, texts, dev)
     kern, plain = [], []
-    for i in range(0, WHISPER_EMBED_PAIRS, 16):
-        batch = {"tokens": toks[i:i + 16], "frames": frames[i:i + 16]}
+    for batch in batches:
         kern.append(step(params, batch))
         with mock.patch.object(L.flash_ops, "flash_attention", attention_ref):
             plain.append(step(params, batch))
     kern, plain = torch.cat(kern), torch.cat(plain)
     cos = float((kern * plain).sum(dim=-1).min())
-    log(phase="whisper_embed_vs_plain", pairs=WHISPER_EMBED_PAIRS,
-        bucket=WHISPER_EMBED_BUCKET, min_cosine=cos,
-        min_cosine_bound=1 - WHISPER_EMBED_COS_GAP, max_abs_err=max_err(kern, plain))
-    check(torch.isfinite(kern).all().item()
-          and cos > 1 - WHISPER_EMBED_COS_GAP,
-          f"whisper embeddings differ from the plain path (cos {cos})")
+    log(phase=phase, **note, min_cosine=cos, min_cosine_bound=1 - gap,
+        max_abs_err=max_err(kern, plain))
+    check(torch.isfinite(kern).all().item() and cos > 1 - gap,
+          f"{phase}: embeddings differ from the plain path (cos {cos})")
+
+
+def whisper_embed_vs_plain(cfg, params, dev):
+    """The embed step over 64 (text, clip) pairs through the kernels and
+    through flash attention's plain version (encoder and decoder), 16
+    pairs a call (the plain version's scores of 16 clips take 1.2 GB), by
+    min cosine."""
+    rng = np.random.default_rng(SEED + 43)
+    texts = passages(rng, WHISPER_EMBED_PAIRS, 90, 129)
+    frames = whisper_frames(cfg, dev, WHISPER_EMBED_PAIRS, SEED + 44)
+    toks = bucket_tokens(cfg, texts, dev, WHISPER_EMBED_BUCKET)
+    embed_vs_plain(cfg, params,
+                   [{"tokens": toks[i:i + 16], "frames": frames[i:i + 16]}
+                    for i in range(0, WHISPER_EMBED_PAIRS, 16)],
+                   "whisper_embed_vs_plain", WHISPER_EMBED_COS_GAP,
+                   pairs=WHISPER_EMBED_PAIRS, bucket=WHISPER_EMBED_BUCKET)
+
+
+def teacher_forcing(cfg, params, inputs, phase, **note):
+    """In f32: ``prefill`` over ``inputs`` (2 rows of frames or patches)
+    and 13 tokens, then 3 decode steps, against ``forward_train``'s
+    teacher-forced logits over the same inputs and 16 tokens (the JAX
+    package's own test of every config, ``tests/test_models.py``), at
+    F32_LOGITS_TOL.  ``next_pos`` must be the prefix's length plus 13."""
+    from repro_torch.models import model as M
+    dev = next(iter(inputs.values())).device
+    g = torch.Generator(device=dev).manual_seed(SEED + 45)
+    toks = torch.randint(0, 256, (2, 16), generator=g, device=dev,
+                         dtype=torch.int32)
+    full, _ = M.forward_train(cfg, params, {"tokens": toks, **inputs})
+    P = full.shape[1] - 16               # a vision prefix's positions
+    lg, cache, pos = M.prefill(cfg, params, {"tokens": toks[:, :13],
+                                             **inputs}, P + 24)
+    errs = [max_err(lg[:, -1], full[:, P + 12])]
+    for i in range(3):
+        lg, cache = M.decode_step(cfg, params, toks[:, 13 + i:14 + i], cache,
+                                  pos + i)
+        errs.append(max_err(lg[:, 0], full[:, P + 13 + i]))
+    log(phase=phase, **note, next_pos=pos, max_abs_err=errs,
+        atol=F32_LOGITS_TOL, logit_scale=float(full.abs().max()))
+    check(pos == P + 13, f"{phase}: prefill returned next_pos {pos}")
+    check(torch.isfinite(full).all().item() and max(errs) < F32_LOGITS_TOL,
+          f"{phase}: f32 prefill/decode differ from teacher forcing: {errs}")
 
 
 def whisper_teacher_forcing(cfg, params, frames):
-    """In f32 at full width: ``prefill`` over 2 clips and 13 tokens, then 3
-    decode steps, against ``forward_train``'s teacher-forced logits over
-    the same 16 tokens (the JAX package's own test of every config,
-    ``tests/test_models.py``), at F32_LOGITS_TOL."""
-    from repro_torch.models import model as M
+    """At full width in f32 (the weights cast), over 2 clips."""
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
-    p32 = _map(torch.Tensor.float, params)
-    f32 = frames[:2].float()
-    g = torch.Generator(device=f32.device).manual_seed(SEED + 45)
-    toks = torch.randint(0, 256, (2, 16), generator=g, device=f32.device,
-                         dtype=torch.int32)
-    full, _ = M.forward_train(cfg32, p32, {"tokens": toks, "frames": f32})
-    lg, cache, pos = M.prefill(cfg32, p32, {"tokens": toks[:, :13],
-                                            "frames": f32}, 24)
-    errs = [max_err(lg[:, -1], full[:, 12])]
-    for i in range(3):
-        lg, cache = M.decode_step(cfg32, p32, toks[:, 13 + i:14 + i], cache,
-                                  pos + i)
-        errs.append(max_err(lg[:, 0], full[:, 13 + i]))
-    del p32, cache
+    teacher_forcing(cfg32, _map(torch.Tensor.float, params),
+                    {"frames": frames[:2].float()},
+                    "whisper_f32_prefill_decode_vs_teacher_forcing")
     torch.cuda.empty_cache()
-    log(phase="whisper_f32_prefill_decode_vs_teacher_forcing",
-        max_abs_err=errs, atol=F32_LOGITS_TOL, logit_scale=float(
-            full.abs().max()))
-    check(torch.isfinite(full).all().item() and max(errs) < F32_LOGITS_TOL,
-          f"whisper f32 prefill/decode differ from teacher forcing: {errs}")
 
 
 def whisper_path(dev):
@@ -2477,8 +2524,8 @@ def whisper_path(dev):
         reqs = [engine.submit(p, max_new_tokens=WHISPER_NEW)
                 for p in clip_prompts]
         engine.run_until_idle()
-        emb = embed_step(params, {"tokens": whisper_tokens(cfg, embed_texts,
-                                                           dev),
+        emb = embed_step(params, {"tokens": bucket_tokens(
+            cfg, embed_texts, dev, WHISPER_EMBED_BUCKET),
                                   "frames": frames})
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2561,6 +2608,186 @@ def whisper_path(dev):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: phi-3-vision-4.2b, the vision patch prefix at full width
+# --------------------------------------------------------------------------
+PHI3V = "phi-3-vision-4.2b"
+# written in PERF.md before the phase's first run on the card
+PHI3V_PREDICTED = {"init_peak_memory_gb": 8.1,
+                   "cache_gb": 3.22,
+                   "peak_memory_gb": [11.0, 13.0],
+                   "phase_wall_s": [20.0, 40.0]}
+PHI3V_IMAGES = 4                 # (image, text) requests of the image path
+PHI3V_TEXT = 64                  # prompt tokens after each image
+PHI3V_NEW = 16                   # greedy decode steps after the prefill
+PHI3V_DECODE_EVERY = 7           # one decode call in 7 held on the path
+PHI3V_EMBED_BUCKET = 128
+PHI3V_EMBED_PAIRS = 16           # (text, image) pairs of the embed check
+# the embed check's bound: min cosine above 1 - this, as phase 4's
+PHI3V_EMBED_COS_GAP = 1e-3
+PHI3V_CUT_LAYERS = 4             # the f32 teacher-forcing check's depth
+
+
+def phi3v_patches(cfg, dev, n, seed):
+    """``n`` random "images": ``num_prefix_tokens`` patch embeddings each,
+    N(0, 1) at the token embeddings' scale (d^-0.5), in the compute dtype
+    (the image tower is a stub in the JAX package too)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((n, cfg.num_prefix_tokens, cfg.d_model),
+                        generator=g, device=dev) * cfg.d_model ** -0.5
+            ).to(cfg.compute_torch_dtype)
+
+
+def phi3v_images(engine) -> dict:
+    """Requests over images, through the model's entry points (the engine
+    and the provider take no patches, as the JAX package's take none:
+    ROADMAP C.16): ``prefill`` over 4 (image, 64-token text) rows, greedy
+    ``decode_step`` from next_pos = 144 + 64 for 16 steps, and the embed
+    step over 4 (text, image) pairs.  Every flash call and one decode call
+    in 7 held against the plain version; flash counted once a layer for
+    the prefill and for the embed step, decode once a layer a step.  The
+    images must move the logits (the prefix is read).  Returns the
+    launches."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serving.steps import make_embed_step
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    P, B = cfg.num_prefix_tokens, PHI3V_IMAGES
+    rng = np.random.default_rng(SEED + 50)
+    patches = phi3v_patches(cfg, dev, B, SEED + 51)
+    prompts = bucket_tokens(cfg, passages(rng, B, PHI3V_TEXT, 129), dev,
+                             PHI3V_TEXT)
+    embed_tokens = bucket_tokens(cfg, passages(rng, B, 90, 129), dev,
+                                  PHI3V_EMBED_BUCKET)
+    step = make_embed_step(cfg)
+    counts = _attention_counts()
+    flash = HeldKernel(counts["flash_attention"], attention_ref)
+    decode = HeldKernel(counts["decode_attention"], decode_attention_ref,
+                        every=PHI3V_DECODE_EVERY)
+
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(L.flash_ops, "flash_attention", flash), \
+            mock.patch.object(L.decode_ops, "decode_attention", decode):
+        logits, cache, pos = M.prefill(
+            cfg, params, {"tokens": prompts, "patches": patches},
+            P + PHI3V_TEXT + PHI3V_NEW)
+        first = logits[:, -1]
+        tok = first.argmax(dim=-1, keepdim=True).to(torch.int32)
+        generated, finite = [tok], [torch.isfinite(first).all()]
+        for i in range(PHI3V_NEW):
+            lg, cache = M.decode_step(
+                cfg, params, tok, cache,
+                torch.full((B,), pos + i, dtype=torch.int32, device=dev))
+            tok = lg[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+            generated.append(tok)
+            finite.append(torch.isfinite(lg).all())
+        emb = step(params, {"tokens": embed_tokens, "patches": patches})
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    held = {"flash_attention": flash.read(), "decode_attention": decode.read()}
+    del cache
+    # the same text without its image: the prefix must change the logits
+    text_only, _, text_pos = M.prefill(cfg, params, {"tokens": prompts},
+                                       PHI3V_TEXT)
+    image_shift = max_err(first, text_only[:, -1])
+    del text_only
+    generated = torch.cat(generated, dim=1).cpu()
+
+    expected = {"flash_attention": 2 * cfg.num_layers,
+                "decode_attention": PHI3V_NEW * cfg.num_layers}
+    log(phase="phi3v_images", card=card_line(), images=B,
+        patches_per_image=P, prompt_tokens=PHI3V_TEXT, next_pos=pos,
+        decode_steps=PHI3V_NEW, generated=generated.tolist(),
+        embed_pairs=B, embed_bucket=PHI3V_EMBED_BUCKET, wall_s=wall,
+        peak_memory_gb=peak / 1e9, launches=launches,
+        expected_launches=expected,
+        image_vs_text_only_logits_max_abs_diff=image_shift)
+    log(phase="phi3v_kernels_vs_plain", atol=TOLS[torch.bfloat16],
+        decode_every=PHI3V_DECODE_EVERY, **held)
+    check(pos == P + PHI3V_TEXT and text_pos == PHI3V_TEXT,
+          f"phi3v: prefill returned next_pos {pos} and {text_pos}")
+    check(all(bool(f) for f in finite)
+          and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
+          "phi3v: image-prefix logits finite, tokens in the vocabulary")
+    check(emb.shape == (B, cfg.d_model) and torch.isfinite(emb).all().item()
+          and torch.allclose(emb.norm(dim=-1), torch.ones_like(emb[:, 0]),
+                             atol=1e-3),
+          "phi3v: image-text embeddings are finite unit vectors")
+    check(image_shift > 0, "phi3v: the image prefix does not change the "
+          "logits")
+    for name, n in launches.items():
+        check(n == expected[name],
+              f"phi3v images: {name} launched {n} times, not "
+              f"{expected[name]}")
+    for name, row in held.items():
+        check(row["ok"], f"phi3v: a held {name} call differs from its "
+              f"plain version: {row}")
+    check(held["flash_attention"]["held"] == launches["flash_attention"],
+          "phi3v: not every flash call was held")
+    return launches
+
+
+def phi3v_embed_vs_plain(engine):
+    """The embed step over 16 (text, image) pairs through the flash kernel
+    and through its plain version, by min cosine."""
+    cfg, dev = engine.cfg, engine.device
+    rng = np.random.default_rng(SEED + 53)
+    texts = passages(rng, PHI3V_EMBED_PAIRS, 90, 129)
+    embed_vs_plain(cfg, engine.params, [{
+        "tokens": bucket_tokens(cfg, texts, dev, PHI3V_EMBED_BUCKET),
+        "patches": phi3v_patches(cfg, dev, PHI3V_EMBED_PAIRS, SEED + 54)}],
+        "phi3v_image_embed_vs_plain", PHI3V_EMBED_COS_GAP,
+        pairs=PHI3V_EMBED_PAIRS, bucket=PHI3V_EMBED_BUCKET)
+
+
+def phi3v_teacher_forcing(dev):
+    """On the configuration cut to 4 layers at full width, in f32 (its own
+    weights, drawn in f32), over 2 images: the f32 instances of both
+    kernels at hd 96 run it."""
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    cfg = get_config(PHI3V).replace(num_layers=PHI3V_CUT_LAYERS,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    teacher_forcing(cfg, params,
+                    {"patches": phi3v_patches(cfg, dev, 2, SEED + 55)},
+                    "phi3v_f32_prefill_decode_vs_teacher_forcing",
+                    cut=f"{PHI3V_CUT_LAYERS} of 32 layers")
+
+
+def phi3v_path(dev):
+    """Phase 13: phi-3-vision-4.2b (32 layers, d 3,072, 32 heads of 96,
+    SwiGLU d_ff 8,192, V 32,064 untied) at full width.  Text as the JAX
+    package serves it, through ``serve_path`` (flash 32 times an embed
+    request, decode 32 times a decode step; the decode step against the
+    plain path); then, on the same weights, requests over images through
+    the model's entry points (``phi3v_images``), an embed batch of (text,
+    image) pairs against the plain path and the decode step's device
+    split; the engine freed, prefill and decode with patches against
+    teacher forcing in f32 on the config cut to 4 layers."""
+    images = {}
+
+    def after_traffic(engine):
+        images.update(phi3v_images(engine))
+        phi3v_embed_vs_plain(engine)
+        decode_split(engine, "phi3v_")
+    text = dense_path(dev, PHI3V, "phi3v_", SEED + 15,
+                      predicted=PHI3V_PREDICTED, after_traffic=after_traffic)
+    free_device("phi3v")
+    phi3v_teacher_forcing(dev)
+    return {name: n + images.get(name, 0) for name, n in text.items()}
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2614,11 +2841,12 @@ def main() -> int:
     rg_flash = check_flash(dev, flush, KH=1, hd=256, window=2048,
                            seed=SEED + 7)
     rg = check_rg_lru(dev, flush)
-    dense = check_dense_rows(dev, flush)
+    dense, embed_flash = check_dense_rows(dev, flush)
     del flush
     torch.cuda.empty_cache()
     for row in (flash, *decode, topk, ssm, rg_flash, *rg_decode, rg,
-                *(r for rows in dense.values() for r in rows)):
+                *(r for rows in dense.values() for r in rows),
+                *embed_flash.values()):
         check(row["ok"], f"{row['name']} disagrees with its plain version "
               f"({row['shape']})")
 
@@ -2643,14 +2871,17 @@ def main() -> int:
     deepseek = deepseek_path(dev)
     free_device("deepseek")
     whisper = whisper_path(dev)
+    free_device("whisper")
+    phi3v = phi3v_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
                GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek,
-               WHISPER: whisper}
+               WHISPER: whisper, PHI3V: phi3v}
     # the same kernel at other paths' shapes, by path
     wider = {"flash_attention": {RGEMMA: rg_flash, **{
-                 arch: rows[0] for arch, rows in dense.items()}},
+                 arch: rows[0] for arch, rows in dense.items()},
+                 **embed_flash},
              "decode_attention": {RGEMMA: rg_decode[0], **{
                  arch: rows[1] for arch, rows in dense.items()}}}
     kernels = []

@@ -1,9 +1,11 @@
 """Architecture config registry: ``get_config(arch)`` / ``list_archs()``.
 
-olmo-1b, falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
-qwen1.5-32b, deepseek-moe-16b, mixtral-8x7b and whisper-base are ported
-so far; the other architecture of the JAX package raises a ``KeyError``
-that says so (ROADMAP.md, queue A).
+Every architecture of the JAX package is ported: olmo-1b,
+falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b, qwen1.5-32b,
+deepseek-moe-16b, mixtral-8x7b, whisper-base and phi-3-vision-4.2b.
+``NOT_YET_PORTED`` names the JAX package's architectures that the port
+does not serve yet (none now); looking one up raises a ``KeyError`` that
+says so, an unknown name a ``KeyError`` that lists the ported ones.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ _ARCHS = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mixtral-8x7b": "mixtral_8x7b",
     "whisper-base": "whisper_base",
+    "phi-3-vision-4.2b": "phi3_vision",
 }
 
 # architectures of the JAX package that the port does not serve yet
-NOT_YET_PORTED = ("phi-3-vision-4.2b",)
+NOT_YET_PORTED: tuple = ()
 
 
 def list_archs():

@@ -215,7 +215,10 @@ class LocalTorchProvider(BaseProvider):
     drawn from a fixed seed.  An encoder-decoder (whisper-base) completes
     text against its engine's zero cross-attention cache and cannot embed
     (``KeyError: 'frames'``), as ``LocalJaxProvider`` (ROADMAP.md, C.15);
-    audio is served through ``engine.cache`` (``serving/engine.py``).
+    audio is served through ``engine.cache`` (``serving/engine.py``).  A
+    vision model (phi-3-vision-4.2b) completes and embeds text only, as
+    ``LocalJaxProvider`` does (ROADMAP.md, C.16); an image reaches the
+    model only through its entry points (``serving/engine.py``).
     """
 
     def __init__(self, arch: str = "olmo-1b", *, use_smoke_config=True,

@@ -46,9 +46,12 @@
 //    16 keys of the tile against all G rows, q's fragments held in
 //    registers, the k-steps in two independent chains.  The tile's row
 //    maxima and sums meet in shared memory, P goes there as bf16, and for
-//    P V the warps split the output dims (hd / 4 each), so a thread keeps
-//    hd / 8 accumulators (not hd / 2, as when every warp covered all dims)
-//    and the 4 warps' states need no merge at the end.
+//    P V the warps split the output dims (hd / 4 each; at hd 96, 32 each
+//    of 3 warps, since the n-tiles go in pairs of 16 dims and 24 is not a
+//    pair: the fourth warp idles there, as warps do at hd 16 and 32), so
+//    a thread keeps hd / 8 accumulators (hd / 6 at hd 96; not hd / 2, as
+//    when every warp covered all dims) and the warps' states need no
+//    merge at the end.
 //  * One partial per block, the merge fused.  A row served by one block
 //    writes its output at once.  Otherwise each block writes one (m, l,
 //    acc) partial for its G heads, and the last block of the row to finish
@@ -77,6 +80,16 @@ constexpr int kMmaWarps = 4;
 constexpr int kRows = 16;      // MMA rows: the G query heads of a KV head
 constexpr int kBN = 64;        // keys per K/V tile, 16 a warp for q K^T
 
+// P V warps: the most of the block's warps that split hd into equal
+// shares of whole 16-dim pairs of n-tiles (the loop takes n-tiles two at a
+// time by one ldmatrix.x4.trans): 1 at hd 16, 2 at 32, 3 at 96 (32 dims
+// each), 4 at 64, 128 and 256.  The warps past it idle in P V.
+constexpr int pv_warps(int hd) {
+  int w = kMmaWarps;
+  while ((hd / 16) % w) --w;
+  return w;
+}
+
 // Shared memory: the 16 q rows, the tile's P (16 rows x 64 keys), then NS
 // stages of a K and a V tile; rows padded by 8 bf16 (16 bytes).  The last
 // block of a row later stages batches of the row's partials in the ring.
@@ -86,9 +99,11 @@ struct DecTile {
   static constexpr int CH = HD / 8;            // 16-byte chunks per row
   static constexpr int PS = kBN + 8;           // padded P row, bf16
   static constexpr int NS = HD > 128 ? 3 : 4;  // ring stages
-  // P V: the warps split the output dims, at least 16 (two n-tiles) each
-  static constexpr int WPV = HD >= 16 * kMmaWarps ? kMmaWarps : HD / 16;
+  // P V: the warps split the output dims, a multiple of 16 each
+  static constexpr int WPV = pv_warps(HD);
   static constexpr int DW = HD / WPV;          // output dims of a P V warp
+  static_assert(HD % 16 == 0 && DW % 16 == 0 && WPV * DW == HD,
+                "P V takes whole pairs of n-tiles");
   static constexpr int kStageBytes = 2 * kBN * RS * 2;
   static constexpr int kHeadBytes = kRows * RS * 2 + kRows * PS * 2;
   static_assert(kStageBytes >= kRows * (HD + 2) * 4,
@@ -664,6 +679,7 @@ REPRO_EXPORT int decode_attention_info(int hd, int dtype, int* out) {
     case 16: return info<16>(dtype, out);
     case 32: return info<32>(dtype, out);
     case 64: return info<64>(dtype, out);
+    case 96: return info<96>(dtype, out);
     case 128: return info<128>(dtype, out);
     case 256: return info<256>(dtype, out);
     default: return cudaErrorInvalidValue;
@@ -696,6 +712,7 @@ REPRO_EXPORT int decode_attention_mma(const void* q, const void* kc,
     case 16: return launch_mma<16>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
     case 32: return launch_mma<32>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
     case 64: return launch_mma<64>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
+    case 96: return launch_mma<96>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
     case 128: return launch_mma<128>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
     case 256: return launch_mma<256>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
     default: return cudaErrorInvalidValue;
@@ -725,6 +742,7 @@ REPRO_EXPORT int decode_attention_f32(const void* q, const void* kc,
     case 16: return dispatch_f32<16>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
     case 32: return dispatch_f32<32>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
     case 64: return dispatch_f32<64>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 96: return dispatch_f32<96>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
     case 128: return dispatch_f32<128>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
     case 256: return dispatch_f32<256>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
     default: return cudaErrorInvalidValue;

@@ -42,10 +42,13 @@
 //    flight at once, each its own commit group, so S = Q K^T starts when
 //    Q and K_0 have landed while V_0, K_1 and V_1 are on their way; a slot
 //    is refilled as soon as every warp is done with it, so for long
-//    sequences the ring wraps.  Tiles are 32 keys from hd 128 (64 below):
-//    at hd 256 two blocks then fit an SM's shared memory, at hd 128 the
-//    registers stay under 168 for 3 blocks an SM.  A tile that every row
-//    of the block sees whole is not masked.
+//    sequences the ring wraps.  Tiles are 32 keys above hd 64 (64 up to
+//    it): at hd 256 two blocks then fit an SM's shared memory, at hd 128
+//    the registers stay under 168 for 3 blocks an SM.  A tile that every
+//    row of the block sees whole is not masked.  At hd 96 (phi-3-vision)
+//    a padded row is 104 bf16, 208 bytes = 13 x 16, odd, so the rows of an
+//    ldmatrix phase still start in 8 different 4-bank groups; the 12 O
+//    n-tiles go in pairs as at every hd; 39,936 shared bytes a block.
 //    Products: mma.sync m16n8k16 (bf16 in, f32 accumulate).  Fragments
 //    come by ldmatrix.x4: Q's (held in registers up to hd 128; at hd 256,
 //    beside the 128 O accumulators, read from shared memory each k-step),
@@ -537,6 +540,7 @@ REPRO_EXPORT int flash_attention_info(int hd, int dtype, int* out) {
     case 16: return info<16>(dtype, out);
     case 32: return info<32>(dtype, out);
     case 64: return info<64>(dtype, out);
+    case 96: return info<96>(dtype, out);
     case 128: return info<128>(dtype, out);
     case 256: return info<256>(dtype, out);
     default: return cudaErrorInvalidValue;
@@ -556,6 +560,7 @@ REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,
     case 16: return launch<16>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     case 32: return launch<32>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     case 64: return launch<64>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
+    case 96: return launch<96>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     case 128: return launch<128>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     case 256: return launch<256>(dtype, q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
     default: return cudaErrorInvalidValue;

@@ -19,7 +19,7 @@ import torch
 from .. import _build
 from .ref import decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
 TILE_KEYS = 64           # keys per K/V tile of the bf16 kernel (csrc)
 GRID_WAVES = 2           # bf16 grid bound: waves of resident blocks

@@ -3,8 +3,8 @@
 
 The same frozen dataclass and field names as the JAX package, for the
 fields the dense decoder, the MoE FFN, the Mamba-1 block, the RG-LRU
-block, the encoder-decoder (whisper) and the int8 KV cache read and the
-feature the port still refuses (the vision frontend).
+block, the encoder-decoder (whisper), the vision patch prefix and the int8
+KV cache read.
 Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
 ``remat*``, ``ssm_fuse``, the cost-probe ``stages_override`` and
 ``enc_stages_override``, sharding padding, ``moe_gathered_spec``) are
@@ -14,6 +14,9 @@ comes with ``loss_fn`` (``ROADMAP.md``, A.13).
 
 The audio frontend is the ``frames`` input (B, encoder_seq, d_model) of
 an encoder-decoder: the JAX package stubs the conv stem the same way.
+The vision frontend is the ``patches`` input (B, P, d_model), P =
+``num_prefix_tokens`` in the configs, put in front of the token
+embeddings: the JAX package stubs the CLIP image tower the same way.
 
 Layer-kind strings used in ``pattern``:
   "attn"   full (global) causal self-attention
@@ -35,6 +38,7 @@ import torch
 ATTN_KINDS = ("attn", "local", "swa", "global")
 PORTED_KINDS = ATTN_KINDS + ("mamba", "rec")
 KV_QUANTS = ("none", "int8")
+FRONTENDS = ("", "audio", "vision")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,7 +84,8 @@ class ModelConfig:
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
     encoder_seq: int = 0             # whisper: 1500 frames
-    frontend: str = ""               # "" | "audio" | "vision" (refused)
+    frontend: str = ""               # "" | "audio" | "vision"
+    num_prefix_tokens: int = 0       # vlm: image patch tokens prepended to text
     # ---- KV cache ----
     kv_quant: str = "none"           # none | int8 (quantized KV cache)
     # ---- numerics ----
@@ -191,7 +196,7 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig):
     """Raise for what the port does not run yet (ROADMAP.md, queue A)."""
     missing = []
-    if cfg.frontend not in ("", "audio"):
+    if cfg.frontend not in FRONTENDS:
         missing.append(f"{cfg.frontend} frontend")
     if cfg.kv_quant not in KV_QUANTS:
         missing.append(f"kv_quant={cfg.kv_quant!r}")

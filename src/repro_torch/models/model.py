@@ -1,7 +1,8 @@
 """Stack assembly for the dense and MoE decoders, the Mamba-1 stack, the
-Griffin hybrid (RG-LRU and local attention) and the encoder-decoder
-(whisper): train forward, prefill, chunked prefill, decode and the
-encoder's cross-attention cache (port of ``repro/models/model.py``).
+Griffin hybrid (RG-LRU and local attention), the encoder-decoder
+(whisper) and the vision patch prefix (phi-3-vision): train forward,
+prefill, chunked prefill, decode and the encoder's cross-attention cache
+(port of ``repro/models/model.py``).
 
 Parameters keep the JAX package's pytree: ``{"embed", "final_norm",
 "stages": [{"b0": {...}, ...}, ...]}`` with each stage's weights stacked
@@ -22,7 +23,11 @@ its clip across requests, as the JAX engine's slots do.
 
 Batch dict convention: ``tokens`` (B, S) int token ids (-1 pads);
 ``frames`` (B, encoder_seq, d_model) the audio frontend's stub embeddings
-(an encoder-decoder's encoder input, as in the JAX package).
+(an encoder-decoder's encoder input, as in the JAX package); ``patches``
+(B, P, d_model) the vision frontend's stub patch embeddings, prepended to
+the tokens' by ``forward_train``, ``prefill`` (whose ``next_pos`` is then
+P + S) and the embed step where the config's frontend is "vision", as in
+the JAX package.  ``prefill_chunk`` and ``decode_step`` take tokens only.
 Parameters are drawn by ``repro_torch.params.init_params``.
 """
 
@@ -196,9 +201,15 @@ def _logits(cfg: ModelConfig, params, x):
 
 
 def _assemble_input(cfg: ModelConfig, params, batch):
-    """Token embeddings.  Returns (x, positions)."""
+    """Token embeddings, after the vision prefix where the batch has one:
+    ``patches`` (B, P, d), cast to the compute dtype, in front of the
+    tokens, as the JAX package does.  Positions run over the whole
+    sequence, so the text starts at position P and the prefix is under the
+    causal mask like any token.  Returns (x, positions)."""
     check_supported(cfg)
     x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend == "vision" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)

@@ -33,6 +33,15 @@ cfg, params, frames, n_slots, max_context)`` in ``engine.cache`` before
 submitting: slot i then holds clip i for every request admitted to it
 (admission resets only recurrent rows).  The engine takes no frames of
 its own, as the JAX engine takes none.
+
+A vision model (phi-3-vision-4.2b) is served as text, as the JAX engine
+serves it: requests and ``embed_batch`` carry tokens alone, so generation
+and embeddings run over the text without an image prefix (ROADMAP.md,
+C.16).  A request over an image goes through the model's entry points:
+``models.model.prefill`` over ``{"tokens", "patches"}``, then
+``decode_step`` from its ``next_pos`` (P + S), or the embed step
+(``serving.steps.make_embed_step``) over such a batch.  The engine takes
+no patches, as the JAX engine takes none.
 """
 
 from __future__ import annotations

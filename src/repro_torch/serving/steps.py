@@ -27,7 +27,11 @@ def make_embed_step(cfg: ModelConfig):
     (llm_embedding).  Token -1 pads and is left out of the mean.  An
     encoder-decoder runs its encoder over ``batch["frames"]`` first, as
     the JAX package does; a batch of tokens alone raises ``KeyError:
-    'frames'`` there and here (``ROADMAP.md``, C.15)."""
+    'frames'`` there and here (``ROADMAP.md``, C.15).  With the vision
+    frontend and ``batch["patches"]`` (B, P, d), the stack runs over the
+    patches and the tokens and the first P rows are dropped before the
+    mean, as in the JAX package; without patches it embeds the tokens
+    alone (C.16)."""
 
     def embed_step(params, batch):
         # run the decoder stack in train (full-sequence) mode, no logits
@@ -38,6 +42,8 @@ def make_embed_step(cfg: ModelConfig):
                                 enc_out=enc_out)
         x = L.norm_apply(cfg, params.get("final_norm", {}), x)
         mask = (batch["tokens"] >= 0).to(F32)
+        if cfg.frontend == "vision" and "patches" in batch:
+            x = x[:, batch["patches"].shape[1]:]
         emb = (x.to(F32) * mask[..., None]).sum(dim=1) / \
             mask.sum(dim=1, keepdim=True).clamp_min(1.0)
         return emb / torch.linalg.vector_norm(

@@ -16,7 +16,10 @@ held on the card against the CPU and against itself (two bf16 calls
 bitwise equal).  The encoder-decoder (whisper-base) runs flash attention
 without the causal mask over 1,500 frames and decode attention at hd 64;
 its smoke config's cross-attention cache and decode step are held on the
-card against the CPU.
+card against the CPU.  phi-3-vision's head dim of 96 has its own instances
+of both attention kernels (the decode kernel's P V split over 3 warps of
+32 dims); a prefill over patches and tokens and a decode step of its smoke
+config widened to hd 96 are held on the card against the CPU.
 """
 
 import numpy as np
@@ -93,7 +96,12 @@ def assert_topk_ids_match(ids, ref_ids):
      (4, 2048, 16, 8, 256, True, 1024),  # gemma3-12b: G 2, the window cuts
      (64, 128, 32, 8, 128, True, 0),     # granite-8b embed batch: G 4
      (64, 128, 40, 40, 128, True, 0),    # qwen1.5-32b embed batch: 40 heads
-     (4, 1500, 8, 8, 64, False, 0)])     # whisper-base encoder: 4 clips
+     (4, 1500, 8, 8, 64, False, 0),      # whisper-base encoder: 4 clips
+     (2, 272, 8, 8, 96, True, 0),        # hd 96: a prefix of 144 + 128
+     (1, 80, 4, 4, 96, False, 0),        # hd 96, bidirectional
+     (2, 70, 8, 2, 96, True, 0),         # hd 96, G 4
+     (2, 100, 4, 2, 96, True, 24),       # hd 96, sliding window
+     (4, 272, 32, 32, 96, True, 0)])     # phi-3-vision: 4 images + text
 def test_flash_attention_kernel(cuda, B, S, H, KH, hd, causal, window,
                                 dtype):
     rng = np.random.default_rng(0)
@@ -152,10 +160,12 @@ def test_decode_attention_kernel_mqa_hd256(cuda, B, S, window, pos, dtype):
     [(16, 8, 256, 1024, [2000, 1500, 1100, 37]),   # gemma3-12b, G 2
      (32, 8, 128, 0, [1900, 1024, 300, 37]),       # granite-8b, G 4
      (40, 40, 128, 0, [1900, 1024, 300, 37]),      # qwen1.5-32b, 40 heads
-     (8, 8, 64, 0, [1900, 1024, 300, 37])])        # whisper-base, hd 64
+     (8, 8, 64, 0, [1900, 1024, 300, 37]),         # whisper-base, hd 64
+     (32, 32, 96, 0, [1900, 1024, 300, 37])])      # phi-3-vision, hd 96
 def test_decode_attention_kernel_dense_widths(cuda, H, KH, hd, window, pos,
                                               dtype):
-    """The dense models' and whisper-base's served decode shapes: 4 slots
+    """The dense models', whisper-base's and phi-3-vision's served decode
+    shapes: 4 slots
     x 2048 positions, gemma3-12b's positions past its window of 1024."""
     rng = np.random.default_rng(7)
     q = _t(rng, (4, 1, H, hd), dtype, cuda)
@@ -224,7 +234,9 @@ def test_int8_decode_step_on_the_card(cuda, dtype):
      (2, 77, 16, 0, [76, 5]),                     # hd 16, one ragged tile
      (1, 4097, 128, 0, [4096]),                   # B 1, one long row
      (4, 3000, 64, 0, [2999, 1, 64, 1500]),       # B 4, very uneven rows
-     (4, 5000, 256, 2048, [4999, 2047, 2048, 0])])  # windowed and uneven
+     (4, 5000, 256, 2048, [4999, 2047, 2048, 0]),  # windowed and uneven
+     (2, 700, 96, 0, [699, 130]),                  # hd 96: 3 P V warps
+     (3, 500, 96, 128, [499, 64, 0])])             # hd 96, windowed
 def test_decode_attention_kernel_edges(cuda, B, S, hd, window, pos, G,
                                        dtype):
     """The split rule's edges: rows of one key, rows cut by the cache end
@@ -618,6 +630,51 @@ def test_encdec_cache_and_decode_step_on_the_card(cuda, dtype):
                                    rtol=tol)
     assert torch.isfinite(logits).all()
     torch.testing.assert_close(logits.cpu(), logits_cpu, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vision_prefill_and_decode_step_on_the_card(cuda, dtype):
+    """phi-3-vision's smoke config widened to two heads of 96 (the full
+    config's head dim) on the card against the same on the CPU (weights
+    drawn once on the CPU): ``prefill`` over 4 images of 4 patches and 20
+    tokens, whose flash calls run the hd-96 instance once a layer, then
+    one decode step at next_pos = 24, which launches decode attention once
+    a layer.  Within 1e-4 in f32 and 6e-2 in bf16 (the model
+    tolerances)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.params import init_params
+    cfg = get_smoke_config("phi-3-vision-4.2b").replace(
+        d_model=192, num_heads=2, num_kv_heads=2, head_dim=96,
+        param_dtype=dtype, compute_dtype=dtype)
+    tol = 1e-4 if dtype == "float32" else 6e-2
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    patches = _t(rng, (4, cfg.num_prefix_tokens, cfg.d_model),
+                 cfg.compute_torch_dtype, "cpu") * cfg.d_model ** -0.5
+    toks = torch.from_numpy(rng.integers(0, 256, (4, 20)).astype(np.int32))
+    tok = torch.from_numpy(rng.integers(0, 256, (4, 1)).astype(np.int32))
+
+    def run(device):
+        p = _to(params, device)
+        logits, cache, pos = M.prefill(
+            cfg, p, {"tokens": toks.to(device),
+                     "patches": patches.to(device)}, 64)
+        step, _ = M.decode_step(cfg, p, tok.to(device), cache,
+                                torch.full((4,), pos, dtype=torch.int32,
+                                           device=device))
+        return logits, step, pos
+    flash0 = flash_ops.flash_attention.launches
+    dec0 = decode_ops.decode_attention.launches
+    logits, step, pos = run(cuda)
+    torch.cuda.synchronize()
+    assert pos == cfg.num_prefix_tokens + 20
+    assert flash_ops.flash_attention.launches == flash0 + cfg.num_layers
+    assert decode_ops.decode_attention.launches == dec0 + cfg.num_layers
+    logits_cpu, step_cpu, _ = run("cpu")
+    for a, b in ((logits, logits_cpu), (step, step_cpu)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=tol)
 
 
 # ---------------------------------------------------------------------------

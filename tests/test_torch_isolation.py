@@ -78,12 +78,22 @@ def test_entry_points_default_to_cuda(no_cuda):
 
 def test_not_yet_ported_names_four_archs():
     """Four architectures until the MoE configs were ported, two until the
-    encoder-decoder was; one now."""
-    from repro_torch.configs import NOT_YET_PORTED, get_config
-    assert NOT_YET_PORTED == ("phi-3-vision-4.2b",)
-    for arch in NOT_YET_PORTED:
-        with pytest.raises(KeyError, match="not yet ported"):
-            get_config(arch)
+    encoder-decoder was, one until the vision prefix was; none now.  The
+    last of them, phi-3-vision-4.2b, is looked up like any other; an
+    unknown name still raises, and the port still refuses a frontend it
+    does not know."""
+    from repro_torch.configs import (NOT_YET_PORTED, get_config,
+                                     get_smoke_config)
+    from repro_torch.models.config import check_supported
+    assert NOT_YET_PORTED == ()
+    for lookup in (get_config, get_smoke_config):
+        cfg = lookup("phi-3-vision-4.2b")
+        assert cfg.frontend == "vision" and cfg.num_prefix_tokens > 0
+        check_supported(cfg)
+        with pytest.raises(KeyError, match="unknown arch"):
+            lookup("phi-4-vision")
+    with pytest.raises(NotImplementedError, match="hologram frontend"):
+        check_supported(cfg.replace(frontend="hologram"))
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "gemma3-12b", "qwen1.5-32b"])

@@ -199,8 +199,8 @@ def test_registry():
     assert list_archs() == ["olmo-1b", "falcon-mamba-7b", "recurrentgemma-9b",
                             "granite-8b", "gemma3-12b", "qwen1.5-32b",
                             "deepseek-moe-16b", "mixtral-8x7b",
-                            "whisper-base"]
-    assert NOT_YET_PORTED == ("phi-3-vision-4.2b",)
+                            "whisper-base", "phi-3-vision-4.2b"]
+    assert NOT_YET_PORTED == ()
 
 
 @pytest.mark.parametrize("smoke", [False, True])
