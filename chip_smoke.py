@@ -155,14 +155,30 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      against the plain path, the decode step's device split, and, the
      model freed, prefill with patches and decode in f32 against teacher
      forcing on the config cut to 4 layers;
-  14. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  14. the trainer (``repro_torch.launch.train``): olmo-1b at full width
+     and depth (bf16 params, remat) trained 6 AdamW steps at global batch
+     8 x 512 tokens, each step's loss, rate, grad norm and wall and the
+     peak memory logged, the losses and norms finite, and no kernel
+     launched (the training route is plain, as the JAX package's); one
+     f32 train step of olmo-1b cut to 2 layers on the card against the
+     same step on the CPU (loss 1e-5 relative, each gradient leaf 1e-4 of
+     its largest magnitude); the resume drill on the cut config (4 steps,
+     checkpoints every 2, a run dying at step 3 resumed with ``--resume
+     auto``) under ``torch.use_deterministic_algorithms(True)``, resumed
+     losses and final checkpoint bitwise the uninterrupted run's; the
+     drill's last checkpoint served through ``ServingEngine(cfg,
+     checkpoint=...)`` (its params bitwise the trained ones, 4 requests of
+     16 new tokens and an embed request, every flash call and one decode
+     call in 7 held against the plain version);
+  15. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
-     qwen1.5-32b, deepseek-moe-16b, whisper-base, phi-3-vision-4.2b; flash
-     and decode attention also with their run keys at each model's
-     shapes), then the card, then the result line.
+     qwen1.5-32b, deepseek-moe-16b, whisper-base, phi-3-vision-4.2b,
+     train; flash and decode attention also with their run keys at each
+     model's shapes), then the card, then the result line.
 
-Weights are random, drawn from a fixed seed (no checkpoint is needed).
+Weights are random, drawn from a fixed seed; phase 14 writes its
+checkpoints into a temporary directory and removes it.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
 
@@ -171,6 +187,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2788,6 +2805,345 @@ def phi3v_path(dev):
     return {name: n + images.get(name, 0) for name, n in text.items()}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the trainer, olmo-1b at full width, and its checkpoint served
+# --------------------------------------------------------------------------
+TRAIN = "olmo-1b"
+# written in PERF.md before the phase's first run on the card
+TRAIN_PREDICTED = {"peak_memory_gb": [22.0, 25.0],
+                   "step_s": [0.2, 0.4],
+                   "first_step_s": [0.5, 5.0],
+                   "step0_loss": [10.9, 11.6],
+                   "phase_wall_s": [35.0, 75.0]}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 512
+TRAIN_CUT_LAYERS = 2             # the f32 check, the drill and the serving
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 128
+DRILL_STEPS, DRILL_EVERY, DRILL_DIE = 4, 2, 3
+DRILL_BATCH, DRILL_SEQ = 2, 128
+TRAIN_SERVE_NEW = 16
+TRAIN_DECODE_EVERY = 7           # one decode call in 7 held on the path
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4     # tests/test_torch_training
+
+
+def _kernel_counts():
+    from repro_torch.kernels.rg_lru.ops import rg_lru
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    return {**counters(), "ssm_scan": ssm_scan, "rg_lru": rg_lru}
+
+
+def _flat_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items()
+                for p, t in _flat_leaves(v, f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree)
+                for p, t in _flat_leaves(v, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def _train_args(dev, *extra) -> list:
+    return ["--arch", TRAIN, "--device", str(dev), "--log-every", "1",
+            *map(str, extra)]
+
+
+def train_full(dev) -> dict:
+    """(a) olmo-1b at full width and depth (bf16 params, remat on) for 6
+    AdamW steps through ``launch/train.py: run`` at global batch 8 and
+    sequence 512: each step's loss, rate, grad norm and wall, the peak
+    memory, and every kernel's launches, which must all be 0 (the
+    training route is plain, as the JAX package's)."""
+    from repro_torch.launch.train import run
+    counts = _kernel_counts()
+    rows = []
+
+    def on_step(step, params, metrics, seconds):
+        rows.append({"step": step, "loss": float(metrics["loss"]),
+                     "lr": float(metrics["lr"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "wall_s": seconds})
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepSplit() as split:
+        losses = run(_train_args(dev, "--steps", TRAIN_STEPS,
+                                 "--global-batch", TRAIN_BATCH,
+                                 "--seq-len", TRAIN_SEQ), on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for row, part in zip(rows, split.rows()):
+        row.update(part)
+    launches = {name: fn.launches for name, fn in counts.items()}
+    cfg = _train_cfg()
+    log(phase="train_olmo", card=card_line(), arch=TRAIN,
+        params=cfg.num_params(), layers=cfg.num_layers, steps=TRAIN_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, remat=cfg.remat,
+        param_dtype=cfg.param_dtype, rows=rows, wall_s=wall,
+        step_s_median=statistics.median(r["wall_s"] for r in rows[1:]),
+        **{f"{k}_median": statistics.median(r[k] for r in rows[1:])
+           for k in ("forward_ms", "backward_ms", "adamw_ms", "step_ms")},
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        ln_vocab=float(np.log(cfg.vocab_size)), launches=launches,
+        **{f"predicted_{k}": TRAIN_PREDICTED[k] for k in
+           ("peak_memory_gb", "step_s", "first_step_s", "step0_loss")})
+    check(all("step_ms" in r for r in rows),
+          f"train split: a step was not timed {rows}")
+    check(len(losses) == TRAIN_STEPS == len(rows)
+          and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                  for r in rows), f"train: non-finite losses or norms {rows}")
+    check(all(n == 0 for n in launches.values()),
+          f"train: the train steps launched kernels {launches}")
+    return launches
+
+
+class StepSplit:
+    """Times the parts of every train step that ``run`` takes, on the
+    stream, with CUDA events: the forward (``M.loss_fn``), the backward
+    (the rest of ``value_and_grad``) and the AdamW update
+    (``adamw_update``).  For the time of a ``with`` it wraps the three
+    functions where ``train_step`` looks them up; the step's code is
+    unchanged.  ``rows()`` synchronizes and gives each step's ms."""
+    PARTS = ("loss_fn", "value_and_grad", "adamw_update")
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        from repro_torch.training import train_step as TS
+        self.events = {name: [] for name in self.PARTS}
+        self._saved = [(M, "loss_fn"), (TS, "value_and_grad"),
+                       (TS, "adamw_update")]
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in self._saved]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def timed(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.events[name].append(ev)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def rows(self) -> list:
+        torch.cuda.synchronize()
+        ms = {name: [a.elapsed_time(b) for a, b in evs]
+              for name, evs in self.events.items()}
+        check(len(set(map(len, ms.values()))) == 1,
+              f"train split: unmatched parts {ms}")
+        return [{"forward_ms": f, "backward_ms": vg - f, "adamw_ms": u,
+                 "step_ms": a_end.elapsed_time(b_end) + vg}
+                for f, vg, u, (_, a_end), (_, b_end) in zip(
+                    ms["loss_fn"], ms["value_and_grad"], ms["adamw_update"],
+                    self.events["value_and_grad"],
+                    self.events["adamw_update"])]
+
+
+def _train_cfg(**kw):
+    from repro_torch.configs import get_config
+    return get_config(TRAIN).replace(**kw)
+
+
+def train_cut_vs_cpu(dev):
+    """(b) one f32 train step of olmo-1b cut to 2 layers at full width on
+    the card against the same step on the CPU: the same weights (drawn on
+    the CPU, copied over), the same 2 x 128 batch.  The loss within 1e-5
+    relative, each gradient leaf within 1e-4 of its largest magnitude;
+    then AdamW on both (the grad norm within 1e-5, the rate equal)."""
+    from repro_torch.params import init_params
+    from repro_torch.training import HParams, adamw_init, make_train_step
+    from repro_torch.training.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.training.train_step import value_and_grad
+    cfg = _train_cfg(num_layers=TRAIN_CUT_LAYERS, param_dtype="float32",
+                     compute_dtype="float32")
+    t0 = time.perf_counter()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    params = _map(lambda t: t.to(dev), cpu_params)
+    b = SyntheticTokenPipeline(DataConfig(
+        cfg.vocab_size, TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH, SEED)).batch_at(0)
+    cpu_b = {k: torch.from_numpy(v) for k, v in b.items()}
+    card_b = {k: v.to(dev) for k, v in cpu_b.items()}
+    t1 = time.perf_counter()
+    (l_card, _), g_card = value_and_grad(cfg, params, card_b)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    (l_cpu, _), g_cpu = value_and_grad(cfg, cpu_params, cpu_b)
+    t3 = time.perf_counter()
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    gc, gp = _flat_leaves(g_card), _flat_leaves(g_cpu)
+    worst = max(((gc[p].cpu() - g).abs().max()
+                 / g.abs().max().clamp_min(1e-30)).item()
+                for p, g in gp.items())
+    del g_card, g_cpu, gc, gp
+    hp = HParams(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, hp)
+    _, _, m_card = step(params, adamw_init(params), card_b)
+    _, _, m_cpu = step(cpu_params, adamw_init(cpu_params), cpu_b)
+    gn_rel = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) \
+        / float(m_cpu["grad_norm"])
+    log(phase="train_cut_f32_vs_cpu", layers=TRAIN_CUT_LAYERS,
+        params=cfg.num_params(), batch=TRAIN_CHECK_BATCH,
+        seq_len=TRAIN_CHECK_SEQ, loss_card=float(l_card),
+        loss_cpu=float(l_cpu), loss_rel_err=loss_rel,
+        max_grad_err_over_leaf_max=worst, grad_norm_rel_err=gn_rel,
+        lr_card=float(m_card["lr"]), lr_cpu=float(m_cpu["lr"]),
+        setup_s=t1 - t0, card_s=t2 - t1, cpu_s=t3 - t2,
+        loss_rtol=TRAIN_LOSS_RTOL, grad_tol=TRAIN_GRAD_TOL)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"train: the card's f32 loss differs from the CPU's by {loss_rel}")
+    check(worst <= TRAIN_GRAD_TOL,
+          f"train: a card gradient differs from the CPU's by {worst} of its "
+          "largest magnitude")
+    check(gn_rel <= TRAIN_LOSS_RTOL
+          and float(m_card["lr"]) == float(m_cpu["lr"]),
+          f"train: AdamW's grad norm {gn_rel} or rate differ")
+
+
+def train_drill(dev, root: Path):
+    """(c) the fault-tolerance drill on the cut config (bf16): 4 steps
+    uninterrupted, checkpoints every 2; the same run dying at step 3, then
+    resumed with ``--resume auto`` from step 2.  Under
+    ``torch.use_deterministic_algorithms(True)`` the resumed losses must
+    equal the uninterrupted run's bitwise, and so must the final
+    checkpoints.  Returns the resumed run's final params and the
+    checkpoint directory."""
+    from repro_torch.launch.train import run
+    from repro_torch.training.checkpoint import CheckpointManager
+    args = _train_args(dev, "--layers", TRAIN_CUT_LAYERS, "--steps",
+                       DRILL_STEPS, "--global-batch", DRILL_BATCH,
+                       "--seq-len", DRILL_SEQ, "--ckpt-every", DRILL_EVERY)
+    last = {}
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = run(args + ["--ckpt-dir", str(root / "a")])
+        died = None
+        try:
+            run(args + ["--ckpt-dir", str(root / "b"), "--die-at-step",
+                        str(DRILL_DIE)])
+        except SystemExit as e:
+            died = e.code
+        resumed = run(args + ["--ckpt-dir", str(root / "b"), "--resume",
+                              "auto"],
+                      on_step=lambda s, p, m, w: last.update(params=p))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    wall = time.perf_counter() - t0
+    a = _flat_leaves(CheckpointManager(str(root / "a")).restore_latest())
+    b = _flat_leaves(CheckpointManager(str(root / "b")).restore_latest())
+    same_ckpt = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    ckpt_gb = sum(p.stat().st_size for p in (root / "b").glob("*.npz")) \
+        / 1e9 / len(list((root / "b").glob("*.npz")))
+    del a, b
+    log(phase="train_drill", layers=TRAIN_CUT_LAYERS, steps=DRILL_STEPS,
+        ckpt_every=DRILL_EVERY, died_at=DRILL_DIE, exit_code=died,
+        losses_full=full, losses_resumed=resumed,
+        bitwise_losses=full[-len(resumed):] == resumed,
+        bitwise_final_checkpoint=same_ckpt, checkpoint_gb=ckpt_gb,
+        deterministic_algorithms=True, wall_s=wall)
+    check(died == 42 and len(resumed) == DRILL_STEPS - DRILL_EVERY,
+          f"train drill: exit {died}, {len(resumed)} resumed steps")
+    check(full[-len(resumed):] == resumed and same_ckpt,
+          f"train drill: resumed losses {resumed} or checkpoint differ "
+          f"from the uninterrupted run's {full}")
+    return last["params"], root / "b"
+
+
+def train_serve(dev, trained, ckpt_dir: Path) -> dict:
+    """(d) the drill's last checkpoint served through
+    ``ServingEngine(cfg, checkpoint=dir)``: its params equal the trained
+    ones bitwise; 4 requests of 16 new tokens and one embed request, every
+    flash call and one decode call in 7 held against the plain version;
+    flash counted once a layer for the embed request, decode once a layer
+    a decode step.  Returns the launches."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    cfg = _train_cfg(num_layers=TRAIN_CUT_LAYERS)
+    engine = ServingEngine(cfg, checkpoint=str(ckpt_dir), device=dev)
+    served, want = _flat_leaves(engine.params), _flat_leaves(trained)
+    same = set(served) == set(want) and all(
+        served[k].dtype == want[k].dtype and torch.equal(served[k], want[k])
+        for k in want)
+    rng = np.random.default_rng(SEED + 60)
+    prompts = [[int(t) for t in rng.integers(0, 256, n)]
+               for n in rng.integers(40, 120, 4)]
+    texts = passages(rng, 8, 90, 129)
+    counts = _attention_counts()
+    flash = HeldKernel(counts["flash_attention"], attention_ref)
+    decode = HeldKernel(counts["decode_attention"], decode_attention_ref,
+                        every=TRAIN_DECODE_EVERY)
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(L.flash_ops, "flash_attention", flash), \
+            mock.patch.object(L.decode_ops, "decode_attention", decode), \
+            mock.patch.object(M, "decode_step", wraps=M.decode_step) as dec:
+        reqs = [engine.submit(p, max_new_tokens=TRAIN_SERVE_NEW)
+                for p in prompts]
+        engine.run_until_idle()
+        emb = engine.embed_batch([list(t.encode()) for t in texts])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_steps = dec.call_count
+    launches = {name: fn.launches for name, fn in counts.items()}
+    held = {"flash_attention": flash.read(), "decode_attention": decode.read()}
+    expected = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * decode_steps}
+    log(phase="train_serve", checkpoint_params_equal_trained=same,
+        requests=len(reqs), new_tokens=[len(r.generated) for r in reqs],
+        embed_texts=len(texts), decode_steps=decode_steps, wall_s=wall,
+        launches=launches, expected_launches=expected)
+    log(phase="train_serve_kernels_vs_plain", atol=TOLS[torch.bfloat16],
+        decode_every=TRAIN_DECODE_EVERY, **held)
+    check(same, "train: the served checkpoint's params differ from the "
+          "trained ones")
+    check(all(r.finished and len(r.generated) == TRAIN_SERVE_NEW
+              for r in reqs), "train: a served request did not finish")
+    check(emb.shape == (len(texts), cfg.d_model) and np.isfinite(emb).all()
+          and np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-3),
+          "train: the served embeddings are not finite unit vectors")
+    for name, n in launches.items():
+        check(n == expected[name], f"train serve: {name} launched {n} "
+              f"times, not {expected[name]}")
+    for name, row in held.items():
+        check(row["ok"], f"train: a held {name} call differs from its plain "
+              f"version: {row}")
+    check(held["flash_attention"]["held"] == launches["flash_attention"],
+          "train: not every flash call was held")
+    return launches
+
+
+def train_path(dev):
+    """Phase 14: the trainer (``launch/train.py``) at full olmo-1b width,
+    the cut config's f32 step against the CPU, the resume drill and the
+    drill's checkpoint served.  Returns the launches of the phase (the
+    train steps' are all 0; the serving's flash and decode)."""
+    import tempfile
+    t0 = time.perf_counter()
+    train_full(dev)
+    free_device("train_olmo")
+    train_cut_vs_cpu(dev)
+    free_device("train_cut")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        trained, ckpt_dir = train_drill(dev, Path(tmp))
+        launches = train_serve(dev, trained, ckpt_dir)
+        del trained
+    log(phase="train_phase", wall_s=time.perf_counter() - t0,
+        predicted_phase_wall_s=TRAIN_PREDICTED["phase_wall_s"])
+    return launches
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2823,6 +3179,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phase 14's drill runs under torch.use_deterministic_algorithms, which
+    # requires this cuBLAS workspace setting (32 MiB, read when cuBLAS
+    # first runs)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda")
     card = card_line()
     log(phase="card", card=card, torch=torch.__version__,
@@ -2873,11 +3233,13 @@ def main() -> int:
     whisper = whisper_path(dev)
     free_device("whisper")
     phi3v = phi3v_path(dev)
+    free_device("phi3v_cut")
+    train = train_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
                GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek,
-               WHISPER: whisper, PHI3V: phi3v}
+               WHISPER: whisper, PHI3V: phi3v, "train": train}
     # the same kernel at other paths' shapes, by path
     wider = {"flash_attention": {RGEMMA: rg_flash, **{
                  arch: rows[0] for arch, rows in dense.items()},

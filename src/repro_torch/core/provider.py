@@ -7,7 +7,8 @@ FlockMTL calls OpenAI/Azure/Ollama over HTTP; the port's providers are:
                        semantic functions return sensible values.
   * LocalTorchProvider — a ported architecture (byte-level tokenizer)
                          served through ``repro_torch.serving`` on the GPU;
-                         random weights unless parameters are given, so
+                         random weights unless a checkpoint or parameters
+                         are given, so
                          outputs are structurally real (true prefill and
                          decode) but not semantically meaningful.
 
@@ -17,7 +18,7 @@ ContextOverflowError, which drives the adaptive batcher's 10% backoff.
 A copy of ``repro/core/provider.py``: ``BaseProvider`` and
 ``MockProvider`` are bit-identical in hashing and row shapes.  Deliberate
 difference: ``LocalTorchProvider`` stands where the reference has
-``LocalJaxProvider``, and takes ``device`` and ``params`` in place of
+``LocalJaxProvider``, and takes ``device`` and ``params`` beside
 ``checkpoint``.
 """
 
@@ -211,8 +212,9 @@ class LocalTorchProvider(BaseProvider):
     Byte-level tokenizer (token id == byte value; ids < 256) keeps the
     provider independent of any external vocabulary.  Generation is
     greedy.  ``device=None`` serves on the GPU and raises without one;
-    ``params`` (``repro_torch.params``) give the weights, else they are
-    drawn from a fixed seed.  An encoder-decoder (whisper-base) completes
+    the weights come from ``checkpoint`` (a ``CheckpointManager``
+    directory, as for ``LocalJaxProvider``) or ``params``
+    (``repro_torch.params``), else they are drawn from a fixed seed.  An encoder-decoder (whisper-base) completes
     text against its engine's zero cross-attention cache and cannot embed
     (``KeyError: 'frames'``), as ``LocalJaxProvider`` (ROADMAP.md, C.15);
     audio is served through ``engine.cache`` (``serving/engine.py``).  A
@@ -222,14 +224,16 @@ class LocalTorchProvider(BaseProvider):
     """
 
     def __init__(self, arch: str = "olmo-1b", *, use_smoke_config=True,
-                 max_context: int = 2048, device=None, params=None):
+                 checkpoint: Optional[str] = None, max_context: int = 2048,
+                 device=None, params=None):
         super().__init__()
         from repro_torch.configs import get_config, get_smoke_config
         from repro_torch.serving.engine import ServingEngine
         cfg = (get_smoke_config(arch) if use_smoke_config
                else get_config(arch))
-        self.engine = ServingEngine(cfg, max_context=max_context,
-                                    device=device, params=params)
+        self.engine = ServingEngine(cfg, checkpoint=checkpoint,
+                                    max_context=max_context, device=device,
+                                    params=params)
         # the serving engine mutates shared decode state (slots, pos, KV
         # cache); scheduler worker threads must take turns.  Concurrency
         # for this provider comes from the engine's own continuous

@@ -124,6 +124,21 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def refuse_grad(name: str, *tensors):
+    """Raise where autograd would need a gradient through a kernel: the
+    kernels have no backward, and a tensor a kernel wrote has no
+    ``grad_fn``, so the graph would stop there without a word.  Serving
+    calls them under ``torch.no_grad()`` or on tensors that need no
+    gradient; the training route runs the plain versions instead
+    (``route="plain"`` in ``models/model.py``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if torch.is_tensor(t)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and an input requires "
+            "grad; call it under torch.no_grad() or take the plain route "
+            "(route='plain')")
+
+
 def require_cuda(name: str, t: torch.Tensor, dtypes, ndim: int):
     """Validate a kernel argument: a contiguous CUDA tensor of one of
     ``dtypes`` with ``ndim`` dimensions, 16-byte aligned."""

@@ -6,6 +6,10 @@ CUDA tensor goes through the hand-written Hopper kernel (or the call
 raises); a CPU tensor goes through the plain version in ``ref.py``.
 ``decode_attention.launches`` counts calls that launched the kernel (one
 launch in bf16; the f32 kernel adds a merge launch).
+
+On the card the call raises where autograd would need a gradient
+(``_build.refuse_grad``): the kernel has no backward, as the Pallas
+kernel has none.
 """
 
 from __future__ import annotations
@@ -100,6 +104,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, pos,
                                     window=window, scale=scale)
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     _build.require_cuda("decode_attention q", q, tuple(_DTYPES), 4)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _build.require_cuda(f"decode_attention {name}", t, (q.dtype,), 4)

@@ -4,6 +4,10 @@ Counterpart of ``repro/kernels/flash_attention/ops.py``, in the same
 (B, S, H, hd) layout.  A CUDA tensor goes through the hand-written Hopper
 kernel (or the call raises); a CPU tensor goes through the plain version
 in ``ref.py``.  ``flash_attention.launches`` counts kernel launches.
+
+On the card the call raises where autograd would need a gradient
+(``_build.refuse_grad``): the kernel has no backward, as the Pallas
+kernel has none.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale)
+    _build.refuse_grad("flash_attention", q, k, v)
     _build.require_cuda("flash_attention q", q, tuple(_DTYPES), 4)
     for name, t in (("k", k), ("v", v)):
         _build.require_cuda(f"flash_attention {name}", t, (q.dtype,), 4)

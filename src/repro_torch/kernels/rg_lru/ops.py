@@ -5,6 +5,10 @@ hand-written Hopper kernel of ``csrc/rg_lru.cu`` for a CUDA tensor (or
 the call raises) and the plain version in ``ref.py`` for a CPU tensor;
 ``rg_lru.launches`` counts kernel launches.  The kernel takes any S and
 di (ragged edges are masked inside it, nothing is padded here).
+
+On the card the call raises where autograd would need a gradient
+(``_build.refuse_grad``): the kernel has no backward, as the Pallas
+kernel has none.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ def rg_lru(a, b):
     dtype, ``h_t = a_t * h_{t-1} + b_t`` from a zero state, f32 inside."""
     if a.device.type == "cpu":
         return rg_lru_ref(a, b)
+    _build.refuse_grad("rg_lru", a, b)
     _build.require_cuda("rg_lru a", a, (F32, BF16), 3)
     _build.require_cuda("rg_lru b", b, (a.dtype,), 3)
     B, S, di = a.shape

@@ -6,6 +6,10 @@ the call raises) and the plain version in ``ref.py`` for a CPU tensor;
 ``ssm_scan.launches`` counts kernel launches.  The kernel takes any S and
 di (ragged edges are masked inside it, nothing is padded here) and a
 state of up to ``MAX_STATE`` per channel.
+
+On the card the call raises where autograd would need a gradient
+(``_build.refuse_grad``): the kernel has no backward, as the Pallas
+kernel has none.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ def ssm_scan(x, dt, Bm, Cm, A_log, D):
     Zero initial state, f32 inside (see ``ref.ssm_scan_ref``)."""
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, Bm, Cm, A_log, D)
+    _build.refuse_grad("ssm_scan", x, dt, Bm, Cm, A_log, D)
     dtypes = (F32, BF16)
     _build.require_cuda("ssm_scan x", x, dtypes, 3)
     _build.require_cuda("ssm_scan dt", dt, (x.dtype,), 3)

@@ -8,6 +8,10 @@ counts kernel launches.  Phase 2 (top-k blocks, gather, exact rescore,
 duplicate mask, top-k) is plain PyTorch, as the JAX package leaves it to
 XLA.  Results come in the canonical (score desc, id asc) order of the
 reference's retrieval operators (``repro/engine/retrieval_ops.py``).
+
+On the card the call raises where autograd would need a gradient
+(``_build.refuse_grad``): the kernel has no backward, as the Pallas
+kernel has none.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ def block_max_scores(corpus, queries, *, block_n: int = 64):
     per-block maxima of q . c."""
     if corpus.device.type == "cpu":
         return block_max_scores_ref(corpus, queries, block_n=block_n)
+    _build.refuse_grad("block_max_scores", corpus, queries)
     _build.require_cuda("block_max_scores corpus", corpus, (F32,), 2)
     _build.require_cuda("block_max_scores queries", queries, (F32,), 2)
     N, D = corpus.shape

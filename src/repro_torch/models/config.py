@@ -3,14 +3,23 @@
 
 The same frozen dataclass and field names as the JAX package, for the
 fields the dense decoder, the MoE FFN, the Mamba-1 block, the RG-LRU
-block, the encoder-decoder (whisper), the vision patch prefix and the int8
-KV cache read.
-Fields that only the TPU lowering reads (``use_pallas``, ``unroll_*``,
-``remat*``, ``ssm_fuse``, the cost-probe ``stages_override`` and
+block, the encoder-decoder (whisper), the vision patch prefix, the int8
+KV cache and the training loss read.  The training route's fields keep
+the JAX package's meanings and defaults: ``router_aux_weight`` (the MoE
+router loss's weight in ``loss_fn``), ``attn_impl`` ("masked":
+``chunked_attention``; "blocked": ``blocked_attention``), ``ssm_fuse``
+("none": ``linear_scan``; "chunk": ``fused_selective_scan``, wherever
+the Mamba scan is plain, as in the JAX package), ``remat``
+and ``remat_policy`` (activation checkpointing per layer, "full" or
+"dots": matmul outputs saved).  They select among plain functions on
+the route that ``loss_fn`` takes (``models/model.py``); serving runs the
+kernels whatever they say.  Fields that only the TPU lowering reads
+(``use_pallas``, ``unroll_*``, the cost-probe ``stages_override`` and
 ``enc_stages_override``, sharding padding, ``moe_gathered_spec``) are
-dropped: the port picks its kernels by the device a tensor lives on, not
-by a flag.  ``router_aux_weight``, which only the training loss reads,
-comes with ``loss_fn`` (``ROADMAP.md``, A.13).
+dropped: the port picks its kernels by the route and the device a
+tensor lives on, not by a flag.  So are ``max_seq``, which no code of
+the JAX package reads, and ``train_accum_steps``, which only its dry run
+reads (the trainer takes ``HParams.accum_steps``).
 
 The audio frontend is the ``frames`` input (B, encoder_seq, d_model) of
 an encoder-decoder: the JAX package stubs the conv stem the same way.
@@ -73,6 +82,7 @@ class ModelConfig:
     num_shared_experts: int = 0
     moe_d_ff: int = 0                # per-routed-expert hidden size
     capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
     # ---- SSM (Mamba-1) / RG-LRU ----
     d_inner: int = 0
     ssm_state: int = 0
@@ -80,6 +90,7 @@ class ModelConfig:
     dt_rank: int = 0
     scan_chunk: int = 256            # chunk of the stateful linear scan
     rglru_blocks: int = 16           # block-diagonal gate blocks
+    ssm_fuse: str = "none"           # none | chunk (the plain Mamba scan)
     # ---- encoder-decoder / frontends ----
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
@@ -92,6 +103,9 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     attn_block_k: int = 512          # KV block of the plain chunked attention
+    attn_impl: str = "masked"        # masked | blocked (plain attention)
+    remat: bool = True               # activation checkpointing per layer
+    remat_policy: str = "full"       # full | dots (save matmul outputs)
 
     # ---------------- derived ----------------
     @property

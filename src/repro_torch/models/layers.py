@@ -25,6 +25,16 @@ self-attention through ``kernels.flash_attention`` without the causal
 mask; the decoder's cross-attention over the encoder's keys and values
 (``cross_attention``) is the plain chunked attention, as the JAX package
 computes it outside any Pallas kernel.
+
+Each full-sequence function takes a ``route``: "kernels" (serving, the
+embed step) as above, or "plain", the training route, which mirrors the
+JAX package's ``use_pallas=False`` branches: attention by
+``cfg.attn_impl`` (``chunked_attention``, or ``blocked_attention``, which
+visits only the block pairs the mask can reach), the Mamba scan by
+``cfg.ssm_fuse`` (``linear_scan``, or ``fused_selective_scan``, whose
+discretised tensors exist one chunk at a time), the RG-LRU by
+``linear_scan``.  The kernels have no backward (nor have the Pallas
+kernels), so a loss goes through the plain route.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numbers
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -44,6 +55,7 @@ from .config import ModelConfig
 
 F32 = torch.float32
 NEG = -1e30
+ROUTES = ("kernels", "plain")
 
 
 def positions_vector(pos, B: int, device) -> torch.Tensor:
@@ -169,6 +181,62 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      block_q: int = 512, block_k: int = 512,
+                      scale: float | None = None):
+    """Static block-pair attention: only the (q-block, kv-block) pairs the
+    causal/window mask can reach, as the JAX package enumerates them
+    (``block_q`` x ``block_k`` tiles, the pair skipped when its whole kv
+    block lies after the q block's last row, or its last key before the
+    window of the q block's first row), each q block's pairs in kv order
+    under one online softmax.  Where the JAX package scans the flattened
+    pair list and writes each q block at its last pair, the port loops
+    over q blocks and their kv blocks; the last blocks are not padded
+    (as in ``chunked_attention``).  Training and prefill shapes only (no
+    q offset).  q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) -> (B, Sq, H, hd)
+    in q.dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else hd ** -0.5
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    outs = []
+    for q_lo in range(0, Sq, bq):
+        qt = (q[:, q_lo:q_lo + bq].to(F32) * scale).reshape(B, -1, KH, G,
+                                                            hd)
+        n = qt.shape[1]
+        q_pos = q_lo + torch.arange(n, device=q.device)
+        m = torch.full((B, KH, G, n), NEG, dtype=F32, device=q.device)
+        l = torch.zeros((B, KH, G, n), dtype=F32, device=q.device)
+        acc = torch.zeros((B, KH, G, n, hd), dtype=F32, device=q.device)
+        for k_lo in range(0, Sk, bk):
+            if causal and k_lo > q_lo + bq - 1:
+                continue
+            if window and q_lo - (k_lo + bk - 1) >= window:
+                continue
+            kt = k[:, k_lo:k_lo + bk].to(F32)
+            vt = v[:, k_lo:k_lo + bk].to(F32)
+            s = torch.einsum("bqkgh,btkh->bkgqt", qt, kt)
+            k_pos = k_lo + torch.arange(kt.shape[1], device=q.device)
+            mask = torch.ones((n, kt.shape[1]), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+            s = s + torch.where(mask, 0.0, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqt,btkh->bkgqh",
+                                                       p, vt)
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-37)[..., None])
+    out = torch.cat(outs, dim=3)                               # (B,KH,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
                      scale: float | None = None):
     """Single-step attention over a cache, the layer-level plain form.
@@ -273,10 +341,18 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def self_attention_train(cfg: ModelConfig, p, x, kind: str, positions,
-                         causal: bool = True):
+                         causal: bool = True, route: str = "kernels"):
     q, k, v = attn_qkv(cfg, p, x, positions, kind)
-    o = flash_ops.flash_attention(q, k, v, causal=causal,
-                                  window=_window(cfg, kind))
+    window = _window(cfg, kind)
+    if route == "kernels":
+        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif cfg.attn_impl == "blocked":
+        o = blocked_attention(q, k, v, causal=causal, window=window,
+                              block_q=cfg.attn_block_k,
+                              block_k=cfg.attn_block_k)
+    else:
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              block_k=cfg.attn_block_k)
     return attn_out(p, o), (k, v)
 
 
@@ -636,20 +712,58 @@ def init_mamba(cfg: ModelConfig, generator, lead=(), device=None):
     }
 
 
-def _mamba_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False):
+def fused_selective_scan(cfg: ModelConfig, x_c, dt, Bm, Cm, A_log, D,
+                         h0=None):
+    """Chunked selective scan with the discretisation and the C projection
+    inside each chunk's body, which is checkpointed: the (B, chunk, di,
+    state) tensors exist one chunk at a time, in the forward and again in
+    the backward, never as a full-sequence residual (the JAX package's
+    ``jax.checkpoint``-ed chunk body; its associative scan within a chunk
+    is the doubling scan here).  x_c, dt (f32), Bm, Cm: (B, S, ...); h0:
+    (B, di, state) f32 or None.  Returns (y (B, S, di) f32, h_last)."""
+    B, S, di = x_c.shape
+    A = -torch.exp(A_log.to(F32))
+
+    def chunk_body(h_in, xq, dtq, Bq, Cq):
+        dtf = dtq.to(F32)
+        a = torch.exp(dtf[..., None] * A)                       # (B,ck,di,s)
+        bu = (dtf * xq.to(F32))[..., None] * Bq.to(F32)[:, :, None, :]
+        Ac, Buc = _doubling_scan(a, bu)
+        hc = Buc + Ac * h_in[:, None]
+        return hc[:, -1], (hc * Cq.to(F32)[:, :, None, :]).sum(dim=-1)
+
+    h = (torch.zeros((B, di, Bm.shape[-1]), dtype=F32, device=x_c.device)
+         if h0 is None else h0)
+    ys = []
+    for start in range(0, S, cfg.scan_chunk):
+        part = [t[:, start:start + cfg.scan_chunk] for t in (x_c, dt, Bm, Cm)]
+        h, y = torch.utils.checkpoint.checkpoint(chunk_body, h, *part,
+                                                 use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1) + D.to(F32) * x_c.to(F32), h
+
+
+def _mamba_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False,
+                route: str = "kernels"):
     """x_c: (B, S, di) post-conv activations -> (y, h_last).
 
-    Without a state in or out (the full-sequence forward) the scan is
-    ``ssm_ops.ssm_scan`` with dt cast to x_c's dtype, as the JAX package's
-    kernel path casts it; otherwise it is the stateful plain scan."""
+    On the kernels route without a state in or out (the full-sequence
+    forward) the scan is ``ssm_ops.ssm_scan`` with dt cast to x_c's dtype,
+    as the JAX package's kernel path casts it; otherwise it is the plain
+    scan, ``fused_selective_scan`` where ``cfg.ssm_fuse`` is "chunk", else
+    ``linear_scan``, as in the JAX package."""
     r, s = cfg.dt_rank, cfg.ssm_state
     proj = x_c @ p["x_proj"]
     dt_raw, Bm, Cm = proj.split([r, s, s], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"]).to(F32) + p["dt_bias"])
-    if h0 is None and not return_state:
+    if route == "kernels" and h0 is None and not return_state:
         y = ssm_ops.ssm_scan(x_c, dt.to(x_c.dtype), Bm.contiguous(),
                              Cm.contiguous(), p["A_log"], p["D"])
         return y, None
+    if cfg.ssm_fuse == "chunk":
+        y, h_last = fused_selective_scan(cfg, x_c, dt, Bm, Cm, p["A_log"],
+                                         p["D"], h0=h0)
+        return y.to(x_c.dtype), (h_last if return_state else None)
     A = -torch.exp(p["A_log"])                                  # (di, s)
     a = torch.exp(dt[..., None] * A)                            # (B,S,di,s)
     bu = (dt * x_c.to(F32))[..., None] * Bm.to(F32)[:, :, None, :]
@@ -659,12 +773,12 @@ def _mamba_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False):
     return y.to(x_c.dtype), (h_last if return_state else None)
 
 
-def mamba_apply_train(cfg: ModelConfig, p, x):
+def mamba_apply_train(cfg: ModelConfig, p, x, route: str = "kernels"):
     xz = x @ p["in_proj"]
     x_in, z = xz.chunk(2, dim=-1)
     x_c, _ = causal_conv(x_in, p["conv_w"], p["conv_b"])
     x_c = F.silu(x_c)
-    y, _ = _mamba_core(cfg, p, x_c)
+    y, _ = _mamba_core(cfg, p, x_c, route=route)
     y = y * F.silu(z)
     return y @ p["out_proj"]
 
@@ -732,13 +846,14 @@ def _blockdiag(x, w, nb: int):
 _RG_C = 8.0
 
 
-def _rglru_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False):
+def _rglru_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False,
+                route: str = "kernels"):
     """x_c: (B, S, di) post-conv activations -> (h f32, h_last).
 
-    The gates are computed in f32.  Without a state in or out (the
-    full-sequence forward) the recurrence is ``rglru_ops.rg_lru``, where
-    the JAX package calls its Pallas kernel; otherwise it is the stateful
-    plain scan."""
+    The gates are computed in f32.  On the kernels route without a state
+    in or out (the full-sequence forward) the recurrence is
+    ``rglru_ops.rg_lru``, where the JAX package calls its Pallas kernel;
+    otherwise it is the plain ``linear_scan``."""
     nb = cfg.rglru_blocks
     r = torch.sigmoid(_blockdiag(x_c, p["rg_a"], nb).to(F32) + p["rg_a_b"])
     i = torch.sigmoid(_blockdiag(x_c, p["rg_x"], nb).to(F32) + p["rg_x_b"])
@@ -747,7 +862,7 @@ def _rglru_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False):
     gated = i * x_c.to(F32)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
         * gated
-    if h0 is None and not return_state:
+    if route == "kernels" and h0 is None and not return_state:
         return rglru_ops.rg_lru(a, b), None
     h_all, h_last = linear_scan(a, b, h0, chunk=cfg.scan_chunk)
     return h_all, (h_last if return_state else None)
@@ -759,11 +874,11 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def rglru_apply_train(cfg: ModelConfig, p, x):
+def rglru_apply_train(cfg: ModelConfig, p, x, route: str = "kernels"):
     xb = x @ p["w_x"]
     g = _gelu(x @ p["w_gate"])
     x_c, _ = causal_conv(xb, p["conv_w"], p["conv_b"])
-    h, _ = _rglru_core(cfg, p, x_c)
+    h, _ = _rglru_core(cfg, p, x_c, route=route)
     y = (h * g.to(F32)).to(x.dtype)
     return y @ p["out_proj"]
 

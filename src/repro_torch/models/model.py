@@ -29,12 +29,26 @@ the tokens' by ``forward_train``, ``prefill`` (whose ``next_pos`` is then
 P + S) and the embed step where the config's frontend is "vision", as in
 the JAX package.  ``prefill_chunk`` and ``decode_step`` take tokens only.
 Parameters are drawn by ``repro_torch.params.init_params``.
+
+Full-sequence entry points take a ``route`` (``layers.ROUTES``):
+"kernels", the CUDA kernels on the card (serving, the embed step,
+``forward_train`` by default), or "plain", the training route of
+``loss_fn``, which mirrors the JAX package's ``use_pallas=False``
+branches (``layers.py``).  On the plain route in train mode,
+``cfg.remat`` checkpoints each repeat of a stage
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` wraps the JAX
+package's scan body; ``remat_policy="dots"`` saves the outputs of the
+weight products (``aten.mm``: matmuls with no batch dimension, as
+``dots_with_no_batch_dims_saveable`` saves) and recomputes the rest.
+The serving entry points (``prefill``, ``prefill_chunk``,
+``encode_for_cache``, ``decode_step``) compute under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from . import layers as L
 from .config import ATTN_KINDS, ModelConfig, check_supported
@@ -60,16 +74,18 @@ def _stack(trees):
 # --------------------------------------------------------------------------
 def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                 pos=None, cache=None, enc_out=None, causal=True,
-                cache_len=0):
+                cache_len=0, route: str = "kernels"):
     """Returns (x, new_cache, aux): aux is the MoE layer's router loss,
     None for a layer without one.  A layer with ``xattn`` (an
     encoder-decoder's decoder) attends over the encoder after its
     self-attention residual: over ``enc_out``'s keys and values in train
     and prefill mode, over the cache's ``xattn`` in decode and extend."""
     if kind == "mamba":
-        return (*_apply_mamba(cfg, p, x, mode=mode, cache=cache), None)
+        return (*_apply_mamba(cfg, p, x, mode=mode, cache=cache,
+                              route=route), None)
     if kind == "rec":
-        return (*_apply_rec(cfg, p, x, mode=mode, cache=cache), None)
+        return (*_apply_rec(cfg, p, x, mode=mode, cache=cache,
+                            route=route), None)
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not yet ported "
                                   "to PyTorch (see ROADMAP.md, queue A)")
@@ -83,7 +99,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                                               cache["attn"], pos)
     else:
         y, (k, v) = L.self_attention_train(cfg, p["attn"], h, kind,
-                                           positions, causal=causal)
+                                           positions, causal=causal,
+                                           route=route)
         if mode == "prefill":
             pad = (0, 0, 0, 0, 0, cache_len - k.shape[1])
             new_attn = {name: F.pad(t, pad) for name, t in
@@ -110,13 +127,13 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
     return x, new_cache, aux
 
 
-def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache):
+def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache, route):
     """A Mamba layer: norm, the block, a residual, no FFN.  Its decode
     path takes any number of tokens (the conv and the scan carry a
     state), so prefill is decode from a zero state and extend is decode."""
     h = L.norm_apply(cfg, p.get("ln1", {}), x)
     if mode == "train":
-        return x + L.mamba_apply_train(cfg, p["mamba"], h), {}
+        return x + L.mamba_apply_train(cfg, p["mamba"], h, route), {}
     c = (cache["mamba"] if mode in ("decode", "extend")
          else L.init_mamba_cache(cfg, x.shape[0], cfg.compute_torch_dtype,
                                  device=x.device))
@@ -124,14 +141,14 @@ def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache):
     return x + y, {"mamba": c}
 
 
-def _apply_rec(cfg: ModelConfig, p, x, *, mode: str, cache):
+def _apply_rec(cfg: ModelConfig, p, x, *, mode: str, cache, route):
     """An RG-LRU layer: norm, the block, a residual, then norm, the FFN, a
     residual.  As for Mamba, prefill is decode from a zero state and
     extend is decode."""
     h = L.norm_apply(cfg, p.get("ln1", {}), x)
     new_cache = {}
     if mode == "train":
-        y = L.rglru_apply_train(cfg, p["rec"], h)
+        y = L.rglru_apply_train(cfg, p["rec"], h, route)
     else:
         c = (cache["rec"] if mode in ("decode", "extend")
              else L.init_rglru_cache(cfg, x.shape[0],
@@ -146,14 +163,30 @@ def _apply_rec(cfg: ModelConfig, p, x, *, mode: str, cache):
 # --------------------------------------------------------------------------
 # stage execution (a loop over stacked repeats)
 # --------------------------------------------------------------------------
+def _matmuls_saved():
+    """``remat_policy="dots"``: keep the weight products' outputs (mm:
+    the matmuls with no batch dimension) and recompute everything else."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
                 positions, pos=None, caches=None, enc_out=None, causal=True,
-                cache_len=0):
+                cache_len=0, route: str = "kernels"):
     """pattern_list: list of (pattern, repeats) matching stages_params.
     Returns (x, caches, aux): in decode/extend the given caches (written
     in place), in prefill new ones, in train None per stage; aux is the
     sum of the layers' MoE router losses in layer order (None without MoE
-    layers)."""
+    layers).  ``route`` is "kernels" or "plain" (``layers.ROUTES``); in
+    train mode on the plain route ``cfg.remat`` checkpoints each repeat."""
+    if route not in L.ROUTES:
+        raise ValueError(f"route {route!r} not in {L.ROUTES}")
+    remat = cfg.remat and mode == "train" and route == "plain"
     new_caches = []
     total_aux = None
     for si, ((pattern, repeats), sp) in enumerate(
@@ -163,15 +196,29 @@ def _run_stages(cfg: ModelConfig, stages_params, pattern_list, x, *, mode,
         for r in range(repeats):
             lp = _index(sp, r)
             lc = None if stage_cache is None else _index(stage_cache, r)
-            ncs = {}
-            for j, kind in enumerate(pattern):
-                x, ncs[f"b{j}"], aux = apply_layer(
-                    cfg, kind, lp[f"b{j}"], x, mode=mode,
-                    positions=positions, pos=pos,
-                    cache=None if lc is None else lc[f"b{j}"],
-                    enc_out=enc_out, causal=causal, cache_len=cache_len)
-                if aux is not None:
-                    total_aux = aux if total_aux is None else total_aux + aux
+
+            def body(x, lp=lp, lc=lc, pattern=pattern):
+                ncs, auxes = {}, []
+                for j, kind in enumerate(pattern):
+                    x, ncs[f"b{j}"], aux = apply_layer(
+                        cfg, kind, lp[f"b{j}"], x, mode=mode,
+                        positions=positions, pos=pos,
+                        cache=None if lc is None else lc[f"b{j}"],
+                        enc_out=enc_out, causal=causal, cache_len=cache_len,
+                        route=route)
+                    if aux is not None:
+                        auxes.append(aux)
+                return x, ncs, auxes
+
+            if remat:
+                x, ncs, auxes = torch.utils.checkpoint.checkpoint(
+                    body, x, use_reentrant=False,
+                    **({"context_fn": _matmuls_saved}
+                       if cfg.remat_policy == "dots" else {}))
+            else:
+                x, ncs, auxes = body(x)
+            for aux in auxes:
+                total_aux = aux if total_aux is None else total_aux + aux
             rep_caches.append(ncs)
         if mode == "prefill":
             new_caches.append(_stack(rep_caches))
@@ -216,11 +263,11 @@ def _assemble_input(cfg: ModelConfig, params, batch):
     return x, positions
 
 
-def _run_encoder(cfg: ModelConfig, params, frames):
+def _run_encoder(cfg: ModelConfig, params, frames, route="kernels"):
     """The encoder over ``frames`` (B, encoder_seq, d): sinusoidal
     positions added in the compute dtype, its stages in train mode
-    without the causal mask (flash attention, rope as in every attention
-    layer), its final norm."""
+    without the causal mask (flash attention on the kernels route, rope as
+    in every attention layer), its final norm."""
     x = frames.to(cfg.compute_torch_dtype)
     x = x + L.sinusoid_pos(x.shape[1], cfg.d_model, dtype=x.dtype,
                            device=x.device)
@@ -229,34 +276,60 @@ def _run_encoder(cfg: ModelConfig, params, frames):
                              device=x.device).expand(B, S)
     enc = params["encoder"]
     x, _, _ = _run_stages(cfg, enc["stages"], list(cfg.encoder_stages()), x,
-                          mode="train", positions=positions, causal=False)
+                          mode="train", positions=positions, causal=False,
+                          route=route)
     return L.norm_apply(cfg, enc.get("final_norm", {}), x)
 
 
-def _encoder_output(cfg: ModelConfig, params, batch):
+def _encoder_output(cfg: ModelConfig, params, batch, route="kernels"):
     """An encoder-decoder's encoder output over ``batch["frames"]`` (a
     ``KeyError`` without them, as in the JAX package), else None."""
     if not cfg.is_encoder_decoder:
         return None
-    return _run_encoder(cfg, params, batch["frames"])
+    return _run_encoder(cfg, params, batch["frames"], route)
 
 
 # --------------------------------------------------------------------------
 # public entry points
 # --------------------------------------------------------------------------
-def forward_train(cfg: ModelConfig, params, batch):
+def forward_train(cfg: ModelConfig, params, batch, route: str = "kernels"):
     """Full-sequence teacher-forced forward. Returns (logits, aux); aux is
     the MoE layers' summed router loss, as the JAX package's, 0 for a
-    stack without MoE layers."""
-    enc_out = _encoder_output(cfg, params, batch)
+    stack without MoE layers.  ``route``: "kernels" or "plain" (the
+    training route, which autograd can differentiate)."""
+    enc_out = _encoder_output(cfg, params, batch, route)
     x, positions = _assemble_input(cfg, params, batch)
     x, _, aux = _run_stages(cfg, params["stages"], list(cfg.stages()), x,
                             mode="train", positions=positions,
-                            enc_out=enc_out)
+                            enc_out=enc_out, route=route)
     x = L.norm_apply(cfg, params.get("final_norm", {}), x)
     if aux is None:
         aux = torch.zeros((), dtype=F32, device=x.device)
     return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token cross-entropy over ``batch["labels"]`` (-1 ignored) plus
+    ``router_aux_weight`` times the MoE router loss, as the JAX package's
+    ``loss_fn``: a vision batch's prefix rows are dropped from the logits
+    first, and the padded vocabulary is masked (the port never pads it:
+    ``padded_vocab`` is ``vocab_size``, so the mask is kept for the copy
+    only).  Returns (total, {"loss", "aux_loss", "tokens"}).  The forward
+    takes the plain route, the one autograd can differentiate."""
+    logits, aux = forward_train(cfg, params, batch, route="plain")
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
+    if cfg.padded_vocab != cfg.vocab_size:
+        mask_v = torch.arange(cfg.padded_vocab,
+                              device=logits.device) < cfg.vocab_size
+        logits = logits.masked_fill(~mask_v, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(F32)
+    nll = ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    total = nll + cfg.router_aux_weight * aux
+    return total, {"loss": nll, "aux_loss": aux, "tokens": mask.sum()}
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
@@ -305,6 +378,7 @@ def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
                     t[:, row].zero_()
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     """Process the prompt; returns (last-token logits, cache, next_pos)."""
     enc_out = _encoder_output(cfg, params, batch)
@@ -317,6 +391,7 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
     return logits, caches, x.shape[1]
 
 
+@torch.no_grad()
 def prefill_chunk(cfg: ModelConfig, params, tokens, cache, off):
     """Chunked prefill: extend the cache with C prompt tokens.  tokens:
     (B, C) int; off: int or (B,) tokens already cached.  Returns (logits
@@ -330,6 +405,7 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, cache, off):
     return _logits(cfg, params, x), caches
 
 
+@torch.no_grad()
 def encode_for_cache(cfg: ModelConfig, params, frames, B: int,
                      cache_len: int):
     """Enc-dec: run the encoder over ``frames`` (B, encoder_seq, d) and
@@ -350,6 +426,7 @@ def encode_for_cache(cfg: ModelConfig, params, frames, B: int,
     return cache
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos):
     """One decode step.  tokens: (B, 1) int; pos: int or (B,) position of
     this token.  Returns (logits (B, 1, V), cache) — the cache given,

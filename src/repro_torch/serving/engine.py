@@ -78,19 +78,33 @@ class Request:
 
 class ServingEngine:
     """``device=None`` serves on the GPU (and raises without one).
-    ``params`` are the port's parameters (``repro_torch.params``: carried
-    over from JAX, read from a checkpoint, or drawn); without them weights
-    are drawn from ``seed``."""
+    ``checkpoint`` is a ``CheckpointManager`` directory, written by either
+    package: the latest checkpoint's ``["params"]`` are restored onto the
+    engine's device, as the JAX engine restores them (a non-parametric
+    norm's empty subtree is not in the file, and the model reads it as
+    empty).  Else ``params`` are the port's parameters
+    (``repro_torch.params``: carried over from JAX, or drawn); without
+    either, weights are drawn from ``seed``.  The model's serving entry
+    points and the embed step compute under ``torch.no_grad()``: serving
+    needs no gradient, and the kernels have no backward."""
 
     def __init__(self, cfg: ModelConfig, *, n_slots: int = 4,
-                 max_context: int = 2048, chunk: int = 32, seed: int = 0,
+                 max_context: int = 2048, chunk: int = 32,
+                 checkpoint: Optional[str] = None, seed: int = 0,
                  device=None, params=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_context = max_context
         self.chunk = chunk
-        if params is not None:
+        if checkpoint:
+            from repro_torch.training.checkpoint import CheckpointManager
+            state = CheckpointManager(checkpoint).restore_latest(
+                self.device)
+            if state is None:
+                raise FileNotFoundError(f"no checkpoint in {checkpoint}")
+            self.params = state["params"]
+        elif params is not None:
             self.params = params
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)

@@ -31,8 +31,9 @@ def make_embed_step(cfg: ModelConfig):
     frontend and ``batch["patches"]`` (B, P, d), the stack runs over the
     patches and the tokens and the first P rows are dropped before the
     mean, as in the JAX package; without patches it embeds the tokens
-    alone (C.16)."""
+    alone (C.16).  The step runs the kernels, under ``torch.no_grad()``."""
 
+    @torch.no_grad()
     def embed_step(params, batch):
         # run the decoder stack in train (full-sequence) mode, no logits
         enc_out = M._encoder_output(cfg, params, batch)

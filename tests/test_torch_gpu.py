@@ -718,3 +718,97 @@ def test_full_ranking_branch_on_the_card(cuda):
     print(f"full-ranking branch {n} x {dim}, Q {len(qv)}: peak "
           f"{peak / 2**20:.1f} MiB allocated on "
           f"{torch.cuda.get_device_name(0)}")
+
+
+# --------------------------------------------------------------------------
+# autograd: the kernels refuse it; the training route runs no kernel
+# --------------------------------------------------------------------------
+def _kernel_calls(rng, device):
+    """(name, wrapper, plain version, inputs) of the five kernels at small
+    shapes, f32."""
+    f32 = torch.float32
+    q = _t(rng, (1, 32, 2, 16), f32, device)
+    kv = _t(rng, (1, 32, 2, 16), f32, device)
+    x, dt, Bm, Cm, A_log, D = _ssm_inputs(rng, 1, 16, 32, 4, f32, device)
+    a = torch.rand((1, 16, 32), device=device)
+    corpus = _t(rng, (256, 32), f32, device)
+    pos = torch.tensor([20], dtype=torch.int32, device=device)
+    return [
+        ("flash_attention", flash_ops.flash_attention, attention_ref,
+         (q, kv, kv.clone())),
+        ("decode_attention", decode_ops.decode_attention,
+         decode_attention_ref, (q[:, :1], kv, kv.clone(), pos)),
+        ("ssm_scan", ssm_ops.ssm_scan, ssm_scan_ref, (x, dt, Bm, Cm, A_log,
+                                                      D)),
+        ("rg_lru", rglru_ops.rg_lru, rg_lru_ref, (a, a.clone())),
+        ("block_max_scores", topk_ops.block_max_scores,
+         block_max_scores_ref, (corpus, corpus[:8].clone())),
+    ]
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_kernel_wrappers_refuse_grad(cuda, which):
+    """On the card a wrapper raises, naming its kernel, where an input
+    requires grad and grad mode is on; under ``no_grad`` the same call
+    runs the kernel and matches the plain version."""
+    rng = np.random.default_rng(40 + which)
+    name, fn, ref, args = _kernel_calls(rng, cuda)[which]
+    live = args[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
+        fn(live, *args[1:])
+    before = fn.launches
+    with torch.no_grad():
+        out = fn(live, *args[1:])
+    assert fn.launches == before + 1 and not out.requires_grad
+    tol = 5 * TOLS[torch.float32] if name in ("ssm_scan", "rg_lru") \
+        else TOLS[torch.float32]
+    torch.testing.assert_close(out, ref(*args), atol=tol, rtol=tol)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items()
+                for p, t in _leaves(v, f"{path}/{k}").items()}
+    if isinstance(tree, list):
+        return {p: t for i, v in enumerate(tree)
+                for p, t in _leaves(v, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "falcon-mamba-7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One f32 train step of the smoke config on the card against the same
+    step on the CPU (the same drawn weights, the same batch): the loss to
+    1e-5 relative, each gradient leaf to 1e-4 of its largest magnitude.
+    The card's step launches no kernel (the plain route)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.params import init_params
+    from repro_torch.training import HParams, adamw_init, make_train_step
+    from repro_torch.training.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.training.train_step import value_and_grad
+    cfg = get_smoke_config(arch).replace(param_dtype="float32",
+                                         compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to(params, cuda)
+    batch = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 32, 2)
+                                   ).batch_at(0)
+    cpu_b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    card_b = {k: v.to(cuda) for k, v in cpu_b.items()}
+    wrappers = (flash_ops.flash_attention, decode_ops.decode_attention,
+                ssm_ops.ssm_scan, rglru_ops.rg_lru,
+                topk_ops.block_max_scores)
+    before = [w.launches for w in wrappers]
+    (l_card, _), g_card = value_and_grad(cfg, on_card, card_b)
+    (l_cpu, _), g_cpu = value_and_grad(cfg, params, cpu_b)
+    torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=1e-5, atol=0)
+    gc, gp = _leaves(g_card), _leaves(g_cpu)
+    assert set(gc) == set(gp)
+    for path, want in gp.items():
+        bound = 1e-4 * want.abs().max().item()
+        assert (gc[path].cpu() - want).abs().max().item() <= bound, path
+    step = make_train_step(cfg, HParams(lr=1e-3, warmup_steps=1,
+                                        total_steps=4))
+    new, _, m = step(on_card, adamw_init(on_card), card_b)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert all(torch.isfinite(t).all() for t in _leaves(new).values())
+    assert [w.launches for w in wrappers] == before

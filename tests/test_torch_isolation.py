@@ -153,3 +153,21 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
     proc = _run_smoke(cwd)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_trainer_modules_are_scanned_and_default_to_cuda(no_cuda):
+    """The training layer (``training/``, ``launch/train.py``) is in the
+    scan above, and its entry point runs on the GPU by default like the
+    others: without a card it raises, asked for the CPU it trains."""
+    from repro_torch.launch.train import run
+    scanned = {str(p.relative_to(REPO / "src" / "repro_torch"))
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"training/optimizer.py", "training/train_step.py",
+            "training/data.py", "training/checkpoint.py",
+            "launch/train.py"} <= scanned
+    args = ["--smoke", "--steps", "1", "--global-batch", "2",
+            "--seq-len", "8"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(args)
+    losses = run(args + ["--device", "cpu"])
+    assert len(losses) == 1 and np.isfinite(losses[0])

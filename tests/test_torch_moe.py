@@ -75,7 +75,7 @@ def _cfgs(case, dtype):
     if case == "deepseek64":
         kw.update(WIDE)
     return (jax_smoke(arch).replace(remat=False, **kw),
-            get_smoke_config(arch).replace(**kw))
+            get_smoke_config(arch).replace(remat=False, **kw))
 
 
 @pytest.fixture(scope="module")
