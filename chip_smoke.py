@@ -49,7 +49,7 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
   5. a traced window of the engine serving 4 requests at once: device
      time by kernel group and the device's idle share;
   5b. the plan layer (``repro_torch.core``) over phase 3's provider:
-     llm_filter, llm_complete and llm_embedding over a 64-row table (16
+     llm_filter, llm_complete and llm_embedding over a 32-row table (8
      rows repeated), llm_reduce over 8 rows and llm_rerank over 16, through
      one SemanticContext with a RequestScheduler (4 workers) and a fresh
      prediction cache, then again on that context, then with no scheduler:
@@ -60,11 +60,11 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      phase; in the serial run every flash-attention call and one
      decode-attention call in 7 are held against the plain version on the
      same inputs (the phase's own shapes: one live slot of four, positions
-     up to ~1,900, a 48-text embed batch), and the embed batch of its
+     up to ~1,900, a 24-text embed batch), and the embed batch of its
      distinct texts through the kernels against the same through the
      plain versions;
   5c. paper Query 3 as one plan over phase 3's provider: a corpus Table
-     of 16,384 passages and 4 questions through ``Pipeline.hybrid_topk``
+     of 8,192 passages and 4 questions through ``Pipeline.hybrid_topk``
      (k 8 of 32 candidates) then ``llm_rerank(by="q")``, with 4 scheduler
      workers, an in-memory prediction cache and an ``IndexStore`` in a
      temporary directory: ``check()`` clean, ``collect(verify="strict")``,
@@ -77,8 +77,10 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      index from the store and embeds only the questions, 1,024 appended
      passages (only they embedded; the grown index ranks as one built from
      scratch), the IVF route at full probe against the exact plan and
-     ``ann="auto"``'s choice and recall@8 logged; block-max, flash and
-     decode attention launch in this phase;
+     ``ann="auto"``'s choice and recall@8 logged; a third collect under
+     phase 15's mesh of 4 shards on the card returns the same table,
+     sends nothing and scans through the mesh (block-max launched 4 times
+     a scan); block-max, flash and decode attention launch in this phase;
   6. olmo-1b freed, the falcon-mamba-7b path at full width through the
      same entry points (one 64-passage embed request, a device-resident
      index, top-k, 2 RAG completions, 5 raw requests on 4 slots), the
@@ -170,12 +172,25 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      checkpoint=...)`` (its params bitwise the trained ones, 4 requests of
      16 new tokens and an embed request, every flash call and one decode
      call in 7 held against the plain version);
-  15. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  15. the mesh-sharded scan on one card: ``VectorIndex(mesh=)`` over a
+     mesh of 4 entries of the card (``launch.mesh.make_mesh``) at
+     1,000,000 x 2048 f32 passages, for 8 queries at k 100 and 4 at k 32:
+     block_max_scores launched 4 times a call (counted from 0 before each
+     call), ids equal to the single-card route's and the plain scan's but
+     for logged near-ties within 1e-6, scores within 1e-5, each route's
+     device time and the call's wall, the kernel at the shard's shape
+     against its plain version; then ``launch/serve.py`` at full olmo-1b
+     width on the card (8 requests of 16 new tokens on 4 slots), every
+     request finished and decode attention launched 16 times a decode
+     step, one call in 7 held against the plain version over the
+     launcher's 256-position cache;
+  16. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
      qwen1.5-32b, deepseek-moe-16b, whisper-base, phi-3-vision-4.2b,
-     train; flash and decode attention also with their run keys at each
-     model's shapes), then the card, then the result line.
+     train, sharded, serve; flash and decode attention also with their run
+     keys at each model's shapes, block-max at the shard's), then the
+     card, then the result line.
 
 Weights are random, drawn from a fixed seed; phase 14 writes its
 checkpoints into a temporary directory and removes it.
@@ -1166,10 +1181,10 @@ class HeldKernel:
 
 
 def plan_table(rng):
-    """64 rows of {title, abstract}; the last 16 repeat earlier rows."""
+    """32 rows of {title, abstract}; the last 8 repeat earlier rows."""
     rows = [{"title": f"paper {i}", "abstract": a}
-            for i, a in enumerate(passages(rng, 48, 90, 129))]
-    return rows + [dict(rows[int(i)]) for i in rng.integers(0, 48, 16)]
+            for i, a in enumerate(passages(rng, 24, 90, 129))]
+    return rows + [dict(rows[int(i)]) for i in rng.integers(0, 24, 8)]
 
 
 def plan_pass(core, ctx, rows) -> dict:
@@ -1227,7 +1242,7 @@ def plan_path(provider):
     """The plan layer's semantic functions through one ``SemanticContext``
     with a ``RequestScheduler(max_workers=4)`` and a fresh prediction cache
     over the phase-3 provider: llm_filter, llm_complete and llm_embedding
-    over a 64-row table (16 rows repeated), llm_reduce over 8 rows and
+    over a 32-row table (8 rows repeated), llm_reduce over 8 rows and
     llm_rerank over 16 (window 6, stride 3); then the same calls again on
     that context, and once more with no scheduler and a fresh cache.  The
     counts must equal those of the same calls on ``MockProvider``, the
@@ -1383,7 +1398,7 @@ def plan_path(provider):
 # --------------------------------------------------------------------------
 # phase 5c: paper Query 3 as one plan over the full-width olmo-1b provider
 # --------------------------------------------------------------------------
-Q3_DOCS = 16_384
+Q3_DOCS = 8_192
 Q3_APPEND = 1_024
 Q3_K, Q3_CANDIDATES = 8, 32
 Q3_QUESTIONS = ("Which join algorithms handle cyclic queries?",
@@ -1393,6 +1408,7 @@ Q3_QUESTIONS = ("Which join algorithms handle cyclic queries?",
 Q3_RERANK = "Rank the passages by how well they answer the question."
 Q3_GEN, Q3_EMB = {"model_name": "q3-gen"}, {"model_name": "q3-embed"}
 SCORE_TOL = 1e-5                 # cosine scores: the engine's parity tests
+SHARDS = 4                       # phase 15's mesh: 4 entries of one card
 
 
 def q3_corpus(engine_mod, rng, n, start=0):
@@ -1477,7 +1493,7 @@ def ranks_agree(ids, ref_ids, ref_scores, tol) -> tuple:
 
 def query3_path(provider):
     """Paper Query 3 as one ``Pipeline`` over the phase-3 provider: a
-    corpus of 16,384 passages and 4 questions, ``hybrid_topk`` (k 8 of 32
+    corpus of 8,192 passages and 4 questions, ``hybrid_topk`` (k 8 of 32
     candidates a retriever) then ``llm_rerank(by="q")``, through a
     ``SemanticContext`` with a ``RequestScheduler(max_workers=4)``, an
     in-memory prediction cache and an ``IndexStore`` in a temporary
@@ -1505,8 +1521,10 @@ def query3_path(provider):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.topk_sim import ops as topk_ops
     from repro_torch.kernels.topk_sim.ref import block_max_scores_ref
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers as L
     from repro_torch.retrieval import VectorIndex, cosine_topk, ensure_index
+    from repro_torch.retrieval import vector as V
     from repro_torch.retrieval.ivf import default_nlist
 
     engine = provider.engine
@@ -1599,6 +1617,19 @@ def query3_path(provider):
             t1 = time.perf_counter()
             again, second, _ = q3_run(ctx, E, questions, corpus)
             second_wall = time.perf_counter() - t1
+            # a third collect under a mesh of 4 shards on this card: the
+            # memoised index places its shards on first use, and the
+            # scan runs through them (phase 15)
+            mesh = make_mesh((SHARDS,), ("data",), devices=[dev] * SHARDS)
+            bm = counts["topk_sim.block_max_scores"]
+            bm_before = bm.launches
+            t1 = time.perf_counter()
+            with mock.patch.object(V, "make_sharded_topk",
+                                   wraps=V.make_sharded_topk) as bound, mesh:
+                meshed, third, _ = q3_run(ctx, E, questions, corpus)
+            third_wall = time.perf_counter() - t1
+            mesh_scans, mesh_launches = bound.call_count, \
+                bm.launches - bm_before
             explain = pipe.explain()
         # the vector candidates of each question against the plain scan
         texts = [str(c) for c in corpus.column("content")]
@@ -1684,6 +1715,9 @@ def query3_path(provider):
     ivf_search_s = time.perf_counter() - t1
     log(phase="query3_kernels_vs_plain", **held)
     log(phase="query3_explain", text=explain)
+    log(phase="query3_mesh", mesh=repr(mesh), table_equal=meshed.rows()
+        == table.rows(), requests=third["calls"], sharded_scans=mesh_scans,
+        block_max_launches=mesh_launches, wall_s=third_wall)
     log(phase="query3", card=card_line(), docs=Q3_DOCS,
         questions=len(Q3_QUESTIONS), k=Q3_K, candidate_k=Q3_CANDIDATES,
         context_window=PLAN_WINDOW,
@@ -1728,6 +1762,12 @@ def query3_path(provider):
           f"query3: the rerank generated {first['output_tokens']} tokens")
     check(second["calls"] == 0 and again.rows() == table.rows(),
           f"query3: the second collect sent {second['calls']} requests")
+    check(meshed.rows() == table.rows() and third["calls"] == 0,
+          f"query3: the collect under a mesh sent {third['calls']} requests"
+          f" or returned another table")
+    check(mesh_scans > 0 and mesh_launches == SHARDS * mesh_scans,
+          f"query3: under the mesh {mesh_scans} sharded scans launched "
+          f"block_max_scores {mesh_launches} times, not {SHARDS} a scan")
     for name, h in held.items():
         check(h["ok"], f"query3: a {name} call differs from its plain "
               f"version: {h}")
@@ -3159,6 +3199,216 @@ def free_device(what: str):
         allocated_gb=torch.cuda.memory_allocated() / 1e9)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the mesh-sharded scan on one card, and the serving launcher
+# --------------------------------------------------------------------------
+SHARDED_ROWS, SHARDED_DIM = 1_000_000, 2048
+SHARDED_CASES = ((8, 100), (4, Q3_CANDIDATES))      # (queries, k)
+SHARDED_CALLS = 20               # timed calls a case
+NEAR_TIE = 1e-6                  # ids may trade places within this gap
+# written in PERF.md before the phase's first run on the card
+SHARDED_PREDICTED = {"shard_kernel_ms": [0.7, 0.9],
+                     "sharded_route_ms": [3.5, 7.0],
+                     "single_route_ms": [10.0, 14.0],
+                     "phase_wall_s": [30, 60]}
+SERVE_ARGS = ["--full", "--arch", "olmo-1b", "--requests", "8",
+              "--slots", "4", "--prompt-len", "48", "--max-new", "16",
+              "--max-context", "256"]
+
+
+def event_ms(fn, calls=SHARDED_CALLS, warmup=2, device=None) -> list:
+    """Device times in ms of ``calls`` calls of ``fn`` on ``device``'s
+    current stream (the current device's where None), by CUDA events, L2
+    warm (a call reads 8 GB)."""
+    with torch.cuda.device(device):
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(calls):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def spread(times) -> dict:
+    return dict(median=statistics.median(times), min=min(times),
+                max=max(times))
+
+
+def sharded_scan(dev, flush):
+    """Phase 15a: ``VectorIndex(mesh=)`` over a mesh of 4 entries of this
+    card at 1,000,000 x 2048 f32, for 8 queries at k 100 and 4 at k 32
+    (Query 3's ``candidate_k``): block_max_scores launched 4 times a
+    call, each counted from 0 just before the call; ids against the
+    single-card route (``topk_sim`` over the whole normalised corpus, as
+    ``VectorIndex.topk`` runs it) and the plain scan (``cosine_topk``),
+    exact but for logged near-ties within 1e-6, scores within 1e-5; the
+    kernel at the shard's shape against its plain version.  Returns
+    (the kernel's row at the shard shape, launches of the phase)."""
+    from repro_torch.kernels.topk_sim import ops as topk_ops
+    from repro_torch.kernels.topk_sim.ref import block_max_scores_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.retrieval import VectorIndex, cosine_topk
+    from repro_torch.retrieval import distributed as D
+
+    N, Dm = SHARDED_ROWS, SHARDED_DIM
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    raw = torch.randn((N, Dm), generator=g, device=dev).cpu().numpy()
+    mesh = make_mesh((SHARDS,), ("data",), devices=[dev] * SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    index = VectorIndex(raw, mesh=mesh)
+    del raw
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    shards = index._placed(mesh)
+    placed_peak = torch.cuda.max_memory_allocated()
+    # the single-card route's corpus, as VectorIndex(device=dev) holds it
+    whole = torch.from_numpy(index.host_vectors).to(dev)
+    bm = topk_ops.block_max_scores
+    launches, cases = 0, []
+    for Q, k in SHARDED_CASES:
+        q = torch.randn((Q, Dm), generator=g, device=dev)
+        q_host = q.cpu().numpy()
+        bm.launches = 0
+        t1 = time.perf_counter()
+        s, i = index.topk(q_host, k)
+        call_s = time.perf_counter() - t1
+        n = bm.launches
+        launches += n
+        s1, i1 = (x.cpu().numpy() for x in topk_ops.topk_sim(whole, q, k))
+        s0, i0 = (x.cpu().numpy() for x in cosine_topk(whole, q, k))
+        single_ok, single_ties = ranks_agree(i, i1, s1, NEAR_TIE / 10)
+        plain_ok, plain_ties = ranks_agree(i, i0, s0, NEAR_TIE / 10)
+        fn = D.make_sharded_topk(mesh, k)
+        route = event_ms(lambda: fn(shards, q))
+        single = event_ms(lambda: topk_ops.topk_sim(whole, q, k))
+        walls = []
+        for _ in range(SHARDED_CALLS):
+            t1 = time.perf_counter()
+            index.topk(q_host, k)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        cases.append(dict(
+            queries=Q, k=k, launches=n, first_call_s=call_s,
+            ids_equal_single=bool(np.array_equal(i, i1)),
+            ids_equal_plain=bool(np.array_equal(i, i0)),
+            near_ties_single=single_ties, near_ties_plain=plain_ties,
+            min_adjacent_gap=float(np.abs(np.diff(s1, axis=1)).min()),
+            max_score_err_single=float(np.abs(s - s1).max()),
+            max_score_err_plain=float(np.abs(s - s0).max()),
+            route_ms=spread(route), single_route_ms=spread(single),
+            call_wall_ms=spread(walls), ok=single_ok and plain_ok and bool(
+                np.abs(s - s1).max() <= SCORE_TOL
+                and np.abs(s - s0).max() <= SCORE_TOL)))
+    del whole
+    # the kernel at the shard's shape
+    shard = shards[0]
+    qn = torch.randn((8, Dm), generator=g, device=dev)
+    qn = qn / qn.norm(dim=-1, keepdim=True)
+    out = bm(shard, qn)
+    ref = block_max_scores_ref(shard, qn)
+    rows = shard.shape[0]
+    b_ms, b_by = bound_ms((rows * Dm + 8 * Dm + 8 * out.shape[1]) * 4,
+                          2 * 8 * rows * Dm, torch.float32)
+    row = dict(
+        name="topk_sim.block_max_scores", shape=f"shard ({rows}, {Dm}) f32 "
+        f"of {SHARDS} on one card, queries (8, {Dm}), block_n 64",
+        max_abs_err=max_err(out, ref), ok=torch.allclose(
+            out, ref, atol=TOLS[torch.float32], rtol=TOLS[torch.float32]),
+        ms=time_ms(lambda: bm(shard, qn), flush),
+        plain_ms=time_ms(lambda: block_max_scores_ref(shard, qn), flush,
+                         iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(phase="sharded_scan", card=card_line(), rows=N, dim=Dm,
+        mesh=repr(mesh), shard_rows=[t.shape[0] for t in shards],
+        shard_devices=[str(t.device) for t in shards],
+        index_holds_whole_corpus_tensor=index.vectors is not None,
+        build_s=build_s, placed_peak_gb=placed_peak / 1e9, cases=cases,
+        kernel=row, predicted=SHARDED_PREDICTED)
+    check(index.vectors is None and sum(t.shape[0] for t in shards) == N
+          and all(t.shape[0] == N // SHARDS for t in shards),
+          "sharded: the shards do not split the corpus evenly")
+    for case in cases:
+        check(case["launches"] == SHARDS,
+              f"sharded: block_max_scores launched {case['launches']} "
+              f"times in a call, not {SHARDS}")
+        check(case["ok"], f"sharded: the sharded route differs from the "
+              f"single-card route or the plain scan: {case}")
+    check(row["ok"], f"sharded: block_max_scores at the shard shape "
+          f"differs from its plain version ({row['max_abs_err']})")
+    return row, {"topk_sim.block_max_scores": launches}
+
+
+def serve_launch():
+    """Phase 15b: ``launch/serve.py`` as a user runs it, at full olmo-1b
+    width on the card (no ``--device``): every request finishes with its
+    tokens; decode attention launches in each of the 16 layers a decode
+    step, one call in 7 held against the plain version on the same inputs
+    (``HeldKernel``; a cache of 256 positions, ``--max-context``, which no
+    other phase decodes over).  The launcher's routes run no full-sequence
+    forward (chunked prefill is plain, as in the JAX package), so flash
+    attention does not launch there; its count is logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+
+    layers = get_config("olmo-1b").num_layers
+    counts = {"flash_attention": flash_ops.flash_attention,
+              "decode_attention": decode_ops.decode_attention}
+    for fn in counts.values():
+        fn.launches = 0
+    # one call in 7: prime to the 16 layers, so every layer is held
+    held = HeldKernel(decode_ops.decode_attention, decode_attention_ref, 7)
+    t0 = time.perf_counter()
+    with mock.patch.object(L.decode_ops, "decode_attention", held):
+        out = serve.run(SERVE_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    held = held.read()
+    n_req = int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1])
+    new = int(SERVE_ARGS[SERVE_ARGS.index("--max-new") + 1])
+    log(phase="serve_kernels_vs_plain", atol=TOLS[torch.bfloat16],
+        rtol=TOLS[torch.bfloat16], decode_attention=held)
+    log(phase="serve_launcher", argv=SERVE_ARGS, **out, wall_s=wall,
+        launches=launches)
+    check(held["ok"], f"serve: a decode_attention call differs from its "
+          f"plain version: {held}")
+    check(held["calls"] == launches["decode_attention"],
+          f"serve: {held['calls']} decode calls went through the held "
+          f"wrapper, {launches['decode_attention']} launched")
+    check(out["done"] == out["requests"] == n_req
+          and out["tokens"] == n_req * new,
+          f"serve: {out['done']} of {n_req} requests finished, "
+          f"{out['tokens']} tokens")
+    check(launches["decode_attention"] > 0
+          and launches["decode_attention"] % layers == 0,
+          f"serve: decode attention launched {launches['decode_attention']}"
+          f" times, not {layers} a decode step")
+    return {"decode_attention": launches["decode_attention"]}
+
+
+def sharded_path(dev):
+    """Phase 15: the sharded scan (15a) and the serving launcher (15b)."""
+    t0 = time.perf_counter()
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)  # 128 MB
+    row, launches = sharded_scan(dev, flush)
+    del flush
+    free_device("sharded")
+    served = serve_launch()
+    log(phase="sharded_phase", wall_s=time.perf_counter() - t0,
+        predicted_phase_wall_s=SHARDED_PREDICTED["phase_wall_s"])
+    return row, launches, served
+
+
 KERNEL_ID_KEYS = ("name", "route", "source", "replaces")
 KERNEL_RUN_KEYS = ("max_abs_err", "ok", "ms", "plain_ms", "bound_ms",
                    "bound_by", "library_ms")
@@ -3235,17 +3485,21 @@ def main() -> int:
     phi3v = phi3v_path(dev)
     free_device("phi3v_cut")
     train = train_path(dev)
+    free_device("train")
+    shard_row, sharded, served = sharded_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
                GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek,
-               WHISPER: whisper, PHI3V: phi3v, "train": train}
+               WHISPER: whisper, PHI3V: phi3v, "train": train,
+               "sharded": sharded, "serve": served}
     # the same kernel at other paths' shapes, by path
     wider = {"flash_attention": {RGEMMA: rg_flash, **{
                  arch: rows[0] for arch, rows in dense.items()},
                  **embed_flash},
              "decode_attention": {RGEMMA: rg_decode[0], **{
-                 arch: rows[1] for arch, rows in dense.items()}}}
+                 arch: rows[1] for arch, rows in dense.items()}},
+             "topk_sim.block_max_scores": {"sharded": shard_row}}
     kernels = []
     for row in (flash, decode[0], topk, ssm, rg):
         name = row["name"]

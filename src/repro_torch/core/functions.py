@@ -28,11 +28,13 @@ trading wasted requests — expected waste is predicted from recorded
 selectivity and capped at ``speculate_waste_cap`` x the serial chain's
 request count — for k-1 saved round-trips.
 
-A copy of ``repro/core/functions.py``.  Its one difference, besides
-this paragraph: ``SemanticContext`` takes ``device`` (None: the GPU),
-the device on which the vector indexes a plan builds live
+A copy of ``repro/core/functions.py``.  Its differences, besides this
+paragraph: ``SemanticContext`` takes ``device`` (None: the GPU), the
+device on which the vector indexes a plan builds live
 (``retrieval.vector.ensure_index``); a retrieval plan without a GPU
-raises unless the context was given ``device="cpu"``.
+raises unless the context was given ``device="cpu"``.  ``index_entries``
+counts an index's rows with ``len(index)`` (a mesh-sharded index has no
+whole-corpus tensor).
 """
 
 from __future__ import annotations
@@ -325,7 +327,7 @@ class SemanticContext:
         model — the prefix-append candidates ``ensure_index`` matches a
         grown corpus against."""
         with self._index_lock:
-            return [(fp, len(idx.vectors))
+            return [(fp, len(idx))
                     for (ref, fp), idx in self._index_registry.items()
                     if ref == model_ref]
 

@@ -124,6 +124,25 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(lib: ctypes.CDLL, entry: str, what: str, device: torch.device,
+           stream: int, *args):
+    """Call the C entry point ``entry`` with ``args`` and ``stream`` (the
+    wrapper's ``stream_ptr(device)``), with ``device`` current on this
+    thread for the call, and raise on a CUDA error.  An entry point sets
+    its kernel's shared memory and launches it on the thread's current
+    device, which need not hold the tensors (a mesh shard on cuda:1 while
+    cuda:0 is current): without the guard that launch would run in the
+    wrong context or fail with "invalid resource handle".  Where the
+    device is already current, as on every launch of a one-card path,
+    the call takes no guard."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = getattr(lib, entry)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = getattr(lib, entry)(*args, stream)
+    check_launch(lib, rc, what)
+
+
 def refuse_grad(name: str, *tensors):
     """Raise where autograd would need a gradient through a kernel: the
     kernels have no backward, and a tensor a kernel wrote has no

@@ -136,12 +136,13 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
         scratch = torch.empty(parts * (hd + 2), dtype=torch.float32,
                               device=q.device)
         acc_part, m_part, l_part = scratch.split((parts * hd, parts, parts))
-        rc = lib.decode_attention_mma(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        _build.launch(
+            lib, "decode_attention_mma", "decode_attention", q.device,
+            stream, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos_b.data_ptr(), o.data_ptr(), acc_part.data_ptr(),
             m_part.data_ptr(), l_part.data_ptr(),
             _row_counters(q.device, stream, rows).data_ptr(), B, S, H, KH,
-            hd, int(window), float(scale), chunk, stream)
+            hd, int(window), float(scale), chunk)
     else:
         gb = min(G, F32_GROUP_BLOCK)
         rows = B * H // gb
@@ -151,12 +152,12 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
         l_part = torch.empty_like(m_part)
         acc_part = torch.empty((rows, split * F32_WARPS, gb, hd),
                                dtype=torch.float32, device=q.device)
-        rc = lib.decode_attention_f32(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        _build.launch(
+            lib, "decode_attention_f32", "decode_attention", q.device,
+            stream, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos_b.data_ptr(), o.data_ptr(), m_part.data_ptr(),
             l_part.data_ptr(), acc_part.data_ptr(), B, S, H, KH, hd,
-            int(window), float(scale), split, gb, stream)
-    _build.check_launch(lib, rc, "decode_attention")
+            int(window), float(scale), split, gb)
     decode_attention.launches += 1
     return o
 

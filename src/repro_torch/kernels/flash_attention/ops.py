@@ -53,11 +53,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return o
     scale = scale if scale is not None else hd ** -0.5
     lib = _build.load(_SIGNATURES)
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
-        H, KH, hd, int(causal), int(window), float(scale), _DTYPES[q.dtype],
-        _build.stream_ptr(q.device))
-    _build.check_launch(lib, rc, "flash_attention")
+    _build.launch(
+        lib, "flash_attention_fwd", "flash_attention", q.device,
+        _build.stream_ptr(q.device), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, KH, hd, int(causal),
+        int(window), float(scale), _DTYPES[q.dtype])
     flash_attention.launches += 1
     return o
 

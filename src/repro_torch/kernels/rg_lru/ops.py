@@ -44,9 +44,9 @@ def rg_lru(a, b):
     if h.numel() == 0:
         return h
     lib = _build.load(_SIGNATURES)
-    rc = lib.rg_lru_fwd(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, di,
-                        _DTYPE_CODE[a.dtype], _build.stream_ptr(a.device))
-    _build.check_launch(lib, rc, "rg_lru")
+    _build.launch(lib, "rg_lru_fwd", "rg_lru", a.device,
+                  _build.stream_ptr(a.device), a.data_ptr(), b.data_ptr(),
+                  h.data_ptr(), B, S, di, _DTYPE_CODE[a.dtype])
     rg_lru.launches += 1
     return h
 

@@ -60,11 +60,11 @@ def ssm_scan(x, dt, Bm, Cm, A_log, D):
     if y.numel() == 0:
         return y
     lib = _build.load(_SIGNATURES)
-    rc = lib.ssm_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+    _build.launch(
+        lib, "ssm_scan_fwd", "ssm_scan", x.device,
+        _build.stream_ptr(x.device), x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         A_log.data_ptr(), D.data_ptr(), y.data_ptr(), B, S, di, N,
-        _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
-    _build.check_launch(lib, rc, "ssm_scan")
+        _DTYPE_CODE[x.dtype])
     ssm_scan.launches += 1
     return y
 

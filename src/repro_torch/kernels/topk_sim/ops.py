@@ -8,6 +8,10 @@ counts kernel launches.  Phase 2 (top-k blocks, gather, exact rescore,
 duplicate mask, top-k) is plain PyTorch, as the JAX package leaves it to
 XLA.  Results come in the canonical (score desc, id asc) order of the
 reference's retrieval operators (``repro/engine/retrieval_ops.py``).
+``topk_sim`` normalises its inputs and calls ``topk_normalised``, which
+runs both phases on unit-norm rows: the mesh-sharded scan
+(``retrieval/distributed.py``) calls it on each shard as it lies on its
+card, without a normalised copy.
 
 On the card the call raises where autograd would need a gradient
 (``_build.refuse_grad``): the kernel has no backward, as the Pallas
@@ -51,10 +55,10 @@ def block_max_scores(corpus, queries, *, block_n: int = 64):
     sms = torch.cuda.get_device_properties(corpus.device).multi_processor_count
     per_cta = max(1, n_blocks // (3 * sms))
     lib = _build.load(_SIGNATURES)
-    rc = lib.block_max_scores_fwd(
-        corpus.data_ptr(), queries.data_ptr(), out.data_ptr(), N, D, Q,
-        block_n, per_cta, _build.stream_ptr(corpus.device))
-    _build.check_launch(lib, rc, "block_max_scores")
+    _build.launch(
+        lib, "block_max_scores_fwd", "block_max_scores", corpus.device,
+        _build.stream_ptr(corpus.device), corpus.data_ptr(), queries.data_ptr(), out.data_ptr(), N, D, Q,
+        block_n, per_cta)
     block_max_scores.launches += 1
     return out
 
@@ -68,18 +72,26 @@ def topk_sim(corpus, queries, k: int, *, block_n: int = 64):
     corpus: (N, D) (normalised inside); queries: (Q, D).
     Returns (scores (Q, k) f32, indices (Q, k) int32).  ``k`` is capped at
     N; an empty corpus or query set returns empty results."""
-    N, D = corpus.shape
-    Q = queries.shape[0]
-    k = min(k, N)
-    if N == 0 or k == 0 or Q == 0:
-        return (torch.zeros((Q, k), dtype=F32, device=corpus.device),
-                torch.zeros((Q, k), dtype=torch.int32, device=corpus.device))
-    block_n = min(block_n, max(N, 8))
     cn = corpus / torch.linalg.vector_norm(
         corpus, dim=-1, keepdim=True).clamp_min(1e-9)
     qn = queries / torch.linalg.vector_norm(
         queries, dim=-1, keepdim=True).clamp_min(1e-9)
-    qn = qn.to(cn.dtype)
+    return topk_normalised(cn, qn.to(cn.dtype), k, block_n=block_n)
+
+
+def topk_normalised(cn, qn, k: int, *, block_n: int = 64):
+    """``topk_sim`` on rows that are already unit-norm: cn (N, D), qn
+    (Q, D) of cn's dtype, on one device.  Phase 1 is the block-max kernel
+    (its plain version on the CPU), phase 2 the exact rescore of the top
+    blocks.  No host sync: a caller may queue it on several cards at once
+    (``retrieval.distributed``)."""
+    N, D = cn.shape
+    Q = qn.shape[0]
+    k = min(k, N)
+    if N == 0 or k == 0 or Q == 0:
+        return (torch.zeros((Q, k), dtype=F32, device=cn.device),
+                torch.zeros((Q, k), dtype=torch.int32, device=cn.device))
+    block_n = min(block_n, max(N, 8))
 
     bmax = block_max_scores(cn, qn, block_n=block_n)      # (Q, n_blocks)
     kb = min(k, bmax.shape[1])
@@ -91,12 +103,12 @@ def topk_sim(corpus, queries, k: int, *, block_n: int = 64):
 
     # candidate rows of the top blocks: (Q, kb * block_n), clipped to N-1
     row_idx = (top_blocks[:, :, None] * block_n
-               + torch.arange(block_n, device=corpus.device)
+               + torch.arange(block_n, device=cn.device)
                ).reshape(Q, kb * block_n).clamp_max(N - 1)
     # candidates in id order; a clipped row gathered twice is kept once
     rows, _ = torch.sort(row_idx, dim=1, stable=True)
     first = torch.cat(
-        [torch.ones((Q, 1), dtype=torch.bool, device=corpus.device),
+        [torch.ones((Q, 1), dtype=torch.bool, device=cn.device),
          rows[:, 1:] != rows[:, :-1]], dim=1)
     cand = cn[rows]                                         # (Q, kb*bn, D)
     # a product and a sum over D, not a batched matrix-vector product: a

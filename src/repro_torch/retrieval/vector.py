@@ -5,12 +5,25 @@ port of ``repro/retrieval/vector.py``.
 running top-k, the oracle of the block-max kernel.
 
 ``VectorIndex`` is the materialised index behind the ``vector_topk`` /
-``hybrid_topk`` plan operators (``engine.retrieval_ops``).  Its
-normalised corpus is moved to the device once, when the index is built,
-and ``topk`` runs the exact block-max scan of ``kernels.topk_sim`` there
-(the CUDA kernel on the GPU, its plain version on the CPU).  The index
-also keeps that normalised corpus on the host, as a numpy array, for the
-numpy IVF quantizer, and ``raw``, the vectors before normalisation.
+``hybrid_topk`` plan operators (``engine.retrieval_ops``).  Scan routing,
+as the reference's:
+
+  * a mesh of more than one device (``mesh=``, or an enclosing ``with
+    mesh:``, ``active_mesh()``) — the sharded scan of
+    ``retrieval.distributed``: corpus rows shard over the mesh's
+    devices, queries replicate, only (Q, shards * k) candidates move to
+    the mesh's first device;
+  * otherwise — the exact block-max scan of ``kernels.topk_sim`` on the
+    index's device (the CUDA kernel on the GPU, its plain version on the
+    CPU).
+
+Without ``mesh=`` the normalised corpus is moved to the index's device
+once, when the index is built; with ``mesh=`` its shards are placed on
+the mesh's devices once instead, and no device holds the whole corpus.
+Under an enclosing mesh an index built without one places its shards
+from the host copy on first use, once a mesh.  The index keeps the
+normalised corpus on the host, as a numpy array, for the numpy IVF
+quantizer and the shards, and ``raw``, the vectors before normalisation.
 
 ``topk_ann`` routes through a lazily built ``retrieval.ivf.IVFIndex``
 (the ``vector_topk(ann=...)`` plan option); ``nprobe >= nlist`` probes
@@ -24,12 +37,13 @@ incremental append: only the delta is embedded (through the same
 next to the base instead of re-embedding the whole corpus.
 
 Differences from the reference: an index lives on a ``device`` (None
-means the GPU, and raises without one): ``VectorIndex.build`` and
+means the GPU, and raises without one) or, with ``mesh=``, on the mesh's
+devices (``device`` is then not read): ``VectorIndex.build`` and
 ``ensure_index`` place it on the context's ``SemanticContext.device``,
-and ``extended`` on the base index's device.  ``topk`` always runs the
-exact block-max route, whose ties come in (score desc, id asc) order.
-The mesh-sharded scan (``active_mesh``, ``mesh=``) is a later slice
-(ROADMAP A.11).
+and ``extended`` where the base index lives.  Without a mesh ``topk``
+runs the exact block-max route, never the plain scan; on either route
+ties come in (score desc, id asc) order.  ``len(index)`` counts its rows
+(``index.vectors`` is None under ``mesh=``).
 """
 
 from __future__ import annotations
@@ -41,7 +55,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.topk_sim.ops import topk_sim
+from repro_torch.launch.mesh import current_mesh
 
+from .distributed import make_sharded_topk, shard_corpus
 from .ivf import IVFIndex
 
 F32 = torch.float32
@@ -80,34 +96,65 @@ def cosine_topk(corpus, queries, k: int, block: int = 4096):
     return best_s, best_i
 
 
+def active_mesh():
+    """The mesh of the innermost enclosing ``with mesh:`` of this thread,
+    or None.
+
+    A single-device mesh is reported as None — sharding the corpus over
+    one device only adds dispatch overhead."""
+    mesh = current_mesh()
+    if mesh is None or mesh.empty or mesh.size <= 1:
+        return None
+    return mesh
+
+
 class VectorIndex:
     """Materialised embedding index over a column of texts.
 
-    ``topk`` is the exact scan on ``device`` (None: the GPU, raising
-    without one); ``topk_ann`` the IVF approximate scan on the host.
+    ``topk`` is the exact scan (mesh-sharded, or the block-max scan on
+    ``device``, None meaning the GPU and raising without one; see the
+    module docstring); ``topk_ann`` the IVF approximate scan on the host.
     ``raw`` keeps the pre-normalisation vectors so segment appends
     (``extended``) rebuild bit-identically to a from-scratch index over
     the full corpus."""
 
-    def __init__(self, vectors: np.ndarray, device=None):
+    def __init__(self, vectors: np.ndarray, device=None, mesh=None):
         v = np.asarray(vectors, np.float32)
         if v.ndim == 1:
             v = v.reshape(0, 0) if v.size == 0 else v.reshape(1, -1)
         self.raw = v
         norms = np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
         self.host_vectors = v / norms
-        self.device = resolve_device(device)
-        self.vectors = torch.from_numpy(self.host_vectors).to(self.device)
+        self.mesh = mesh
+        self._shards = {}            # id(mesh) -> (mesh, placed shards)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.vectors = torch.from_numpy(self.host_vectors).to(
+                self.device)
+        else:
+            self.device = mesh.devices.flat[0]
+            self.vectors = None
+            self._placed(mesh)
         self._ivf: Optional[IVFIndex] = None
 
     def __len__(self) -> int:
-        return self.vectors.shape[0]
+        return self.host_vectors.shape[0]
 
     @classmethod
-    def build(cls, ctx, model_spec, texts: Sequence[str]) -> "VectorIndex":
+    def build(cls, ctx, model_spec, texts: Sequence[str],
+              mesh=None) -> "VectorIndex":
         from repro_torch.core.functions import llm_embedding
         return cls(llm_embedding(ctx, model_spec, list(texts)),
-                   device=ctx.device)
+                   device=ctx.device, mesh=mesh)
+
+    def _placed(self, mesh) -> list:
+        """The corpus shards on ``mesh``'s devices, placed from the host
+        copy on first use."""
+        hit = self._shards.get(id(mesh))
+        if hit is None or hit[0] is not mesh:
+            hit = self._shards[id(mesh)] = (
+                mesh, shard_corpus(mesh, self.host_vectors))
+        return hit[1]
 
     def topk(self, query_vecs: np.ndarray, k: int = 100):
         """Exact cosine top-k: (scores (Q, k) f32, ids (Q, k) int32) as
@@ -117,8 +164,13 @@ class VectorIndex:
         if use_k <= 0 or q.shape[-1] == 0:
             return (np.zeros((len(q), 0), np.float32),
                     np.zeros((len(q), 0), np.int32))
-        s, i = topk_sim(self.vectors, torch.from_numpy(q).to(self.device),
-                        use_k)
+        mesh = self.mesh if self.mesh is not None else active_mesh()
+        if mesh is not None:
+            s, i = make_sharded_topk(mesh, use_k)(self._placed(mesh),
+                                                  torch.from_numpy(q))
+        else:
+            s, i = topk_sim(self.vectors,
+                            torch.from_numpy(q).to(self.device), use_k)
         return s.cpu().numpy(), i.cpu().numpy()
 
     # ---- ANN -------------------------------------------------------------
@@ -128,7 +180,7 @@ class VectorIndex:
         rebuilds it."""
         if self._ivf is None or (
                 nlist is not None and self._ivf.nlist != min(
-                    max(int(nlist), 1), len(self.vectors))):
+                    max(int(nlist), 1), len(self))):
             self._ivf = IVFIndex.build(self.host_vectors, nlist)
         return self._ivf
 
@@ -140,7 +192,7 @@ class VectorIndex:
         (which picks the smallest calibrated nprobe meeting the target);
         ``nprobe >= nlist`` reproduces the exact scan."""
         q = np.atleast_2d(np.asarray(query_vecs, np.float32))
-        use_k = min(k, len(self.vectors))
+        use_k = min(k, len(self))
         if use_k <= 0 or q.shape[-1] == 0:
             return (np.zeros((len(q), 0), np.float32),
                     np.zeros((len(q), 0), np.int64))
@@ -155,8 +207,8 @@ class VectorIndex:
     # ---- incremental appends ---------------------------------------------
     def extended(self, delta_vectors: np.ndarray) -> "VectorIndex":
         """A NEW index over this corpus plus ``delta_vectors`` (raw,
-        un-normalised — same as ``llm_embedding`` output), on this
-        index's device.  The base index is untouched (it stays registered
+        un-normalised — same as ``llm_embedding`` output), where this
+        index lives (its device, or its mesh).  The base index is untouched (it stays registered
         under its own fingerprint); a built IVF quantizer carries over
         with the new rows assigned to existing lists (merged lazily)."""
         delta = np.asarray(delta_vectors, np.float32)
@@ -165,7 +217,7 @@ class VectorIndex:
         if not delta.size:
             return self
         idx = VectorIndex(np.concatenate([self.raw, delta]),
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
         if self._ivf is not None:
             idx._ivf = self._ivf.extended(idx.host_vectors, len(delta))
         return idx
@@ -192,7 +244,7 @@ def _find_prefix_base(ctx, store, model_ref: str, texts):
         if fp_n not in lengths[n]:
             continue
         index = ctx.lookup_index((model_ref, fp_n))
-        if index is not None and len(index.vectors) == n:
+        if index is not None and len(index) == n:
             return n, fp_n, index, None
         if store is not None:
             vectors = store.get(model_ref, fp_n)

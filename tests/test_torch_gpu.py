@@ -19,7 +19,11 @@ its smoke config's cross-attention cache and decode step are held on the
 card against the CPU.  phi-3-vision's head dim of 96 has its own instances
 of both attention kernels (the decode kernel's P V split over 3 warps of
 32 dims); a prefill over patches and tokens and a decode step of its smoke
-config widened to hd 96 are held on the card against the CPU.
+config widened to hd 96 are held on the card against the CPU.  On a
+machine with two cards or more, each wrapper launches on its tensors'
+card while another is current, and the mesh-sharded scan runs over every
+card at 100,000 x 2048 against the single-card route (these skip below
+two cards, decided in the ``cards`` fixture).
 """
 
 import numpy as np
@@ -763,6 +767,101 @@ def test_kernel_wrappers_refuse_grad(cuda, which):
     tol = 5 * TOLS[torch.float32] if name in ("ssm_scan", "rg_lru") \
         else TOLS[torch.float32]
     torch.testing.assert_close(out, ref(*args), atol=tol, rtol=tol)
+
+
+# --------------------------------------------------------------------------
+# several cards: each wrapper launches on its tensors' card; the sharded scan
+# --------------------------------------------------------------------------
+@pytest.fixture
+def cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_kernel_wrappers_launch_on_their_tensors_card(cards, which):
+    """With cuda:0 current, each wrapper called on tensors on cuda:1
+    launches there (its count moves, its output lies there) and matches
+    the plain version; cuda:0 stays current."""
+    rng = np.random.default_rng(60 + which)
+    name, fn, ref, args = _kernel_calls(rng, cards[1])[which]
+    before = fn.launches
+    with torch.cuda.device(cards[0]), torch.no_grad():
+        out = fn(*args)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(cards[1])
+    assert fn.launches == before + 1 and out.device == cards[1]
+    tol = 5 * TOLS[torch.float32] if name in ("ssm_scan", "rg_lru") \
+        else TOLS[torch.float32]
+    torch.testing.assert_close(out, ref(*args), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+def test_bf16_attention_on_another_card(cards, kernel):
+    """The bf16 attention instances raise their shared-memory limit on the
+    launching device: on cuda:1 with cuda:0 current too."""
+    rng = np.random.default_rng(70)
+    bf16 = torch.bfloat16
+    with torch.cuda.device(cards[0]), torch.no_grad():
+        if kernel == "flash_attention":
+            q = _t(rng, (2, 128, 4, 128), bf16, cards[1])
+            k, v = (_t(rng, (2, 128, 4, 128), bf16, cards[1])
+                    for _ in range(2))
+            out = flash_ops.flash_attention(q, k, v)
+            ref = attention_ref(q, k, v)
+        else:
+            q = _t(rng, (2, 1, 4, 128), bf16, cards[1])
+            k, v = (_t(rng, (2, 256, 4, 128), bf16, cards[1])
+                    for _ in range(2))
+            pos = torch.tensor([200, 17], dtype=torch.int32,
+                               device=cards[1])
+            out = decode_ops.decode_attention(q, k, v, pos)
+            ref = decode_attention_ref(q, k, v, pos)
+    torch.cuda.synchronize(cards[1])
+    assert out.device == cards[1]
+    _close(out, ref, bf16)
+
+
+def _ranks_agree(ids, ref_ids, ref_scores, gap=1e-6):
+    """Equal ids at every rank, except that ids may trade places within a
+    run of reference scores less than ``gap`` apart (a near-tie; a run
+    that reaches the rank limit is compared up to it only by score)."""
+    for got, ref, s in zip(ids, ref_ids, ref_scores):
+        start = 0
+        for r in range(1, len(ref) + 1):
+            if r < len(ref) and s[r - 1] - s[r] < gap:
+                continue
+            if r < len(ref) or r - start == 1:
+                assert set(got[start:r]) == set(ref[start:r])
+            start = r
+
+
+def test_sharded_route_over_the_cards(cards):
+    """``VectorIndex(mesh=)`` over every visible card at 100,000 x 2048:
+    one shard a card, block_max_scores launched once a card per call, ids
+    equal to the single-card route's (near-ties within 1e-6 aside),
+    scores within 1e-5."""
+    from repro_torch.launch.mesh import make_mesh
+    n = len(cards)
+    mesh = make_mesh((n,), ("data",))
+    g = torch.Generator(device=cards[0]).manual_seed(11)
+    host = torch.randn((100_000, 2048), generator=g,
+                       device=cards[0]).cpu().numpy()
+    index = retrieval.VectorIndex(host, mesh=mesh)
+    single = retrieval.VectorIndex(host, device=cards[0])
+    assert [t.device for t in index._placed(mesh)] == cards
+    assert index.vectors is None
+    rng = np.random.default_rng(12)
+    for Q, k in ((8, 100), (4, 32)):
+        q = rng.standard_normal((Q, 2048)).astype(np.float32)
+        before = topk_ops.block_max_scores.launches
+        s, i = index.topk(q, k)
+        assert topk_ops.block_max_scores.launches == before + n
+        s1, i1 = single.topk(q, k)
+        np.testing.assert_allclose(s, s1, atol=1e-5, rtol=0)
+        _ranks_agree(i, i1, s1)
 
 
 def _leaves(tree, path=""):

@@ -4,8 +4,14 @@ package's, on identical weights, on the CPU.
 Generation is compared in f32, where greedy argmax is stable: token ids
 must be equal.  Embeddings agree within 1e-4 (f32 summation order);
 top-k ids exactly, scores within 1e-5.  Scenarios follow
-``tests/test_serving.py``.
+``tests/test_serving.py``.  The serving launcher (``launch/serve.py``)
+runs in both packages on the smoke configs with the same arguments:
+requests finished, tokens and engine steps equal (the port draws its own
+weights, and no request stops early), and on ``--semantic`` the rows and
+the reports' batch sizes.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -260,3 +266,65 @@ def test_vector_index_empty_inputs():
     s, i = VectorIndex(np.ones((3, 4), np.float32), device="cpu").topk(
         np.ones((1, 4), np.float32), 0)
     assert s.shape == i.shape == (1, 0)
+
+
+# --------------------------------------------------------------------------
+# the serving launcher (launch/serve.py) against the reference's
+# --------------------------------------------------------------------------
+_SERVED = re.compile(r"^(\d+)/(\d+) requests, (\d+) tokens in [\d.]+s "
+                     r"\([\d.]+ tok/s, (\d+) engine steps\)$")
+_SEMANTIC = re.compile(r"^semantic path: (\d+) rows in [\d.]+s "
+                       r"\([\d.]+ rows/s\); reports=(.*)$")
+
+
+def _launch(run, argv, capsys, pattern):
+    """The fields of the one line ``run(argv)`` prints (walls dropped)."""
+    result = run(argv)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    match = pattern.match(line)
+    assert match, line
+    return match.groups(), result
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--requests", "5", "--slots", "2", "--prompt-len", "20",
+         "--max-new", "7"],
+    ["--arch", "granite-8b", "--requests", "3", "--max-new", "5",
+     "--max-context", "128"]])
+def test_serve_launcher_matches_jax(argv, capsys):
+    """The engine route of ``launch/serve.py`` on the smoke config: the
+    same requests finished, tokens and engine steps as the reference's."""
+    from repro.launch import serve as jax_serve
+    from repro_torch.launch import serve
+    ref, none = _launch(jax_serve.run, argv, capsys, _SERVED)
+    got, result = _launch(serve.run, argv + ["--device", "cpu"], capsys,
+                          _SERVED)
+    assert none is None and got == ref
+    done, n, toks, steps = map(int, got)
+    assert (result["done"], result["requests"], result["tokens"],
+            result["steps"]) == (done, n, toks, steps) and done == n
+
+
+@pytest.mark.parametrize("argv", [
+    ["--semantic"], ["--semantic", "--requests", "5", "--max-context",
+                     "128"]])
+def test_serve_launcher_semantic_matches_jax(argv, capsys):
+    """The ``--semantic`` route through each package's local provider:
+    the same rows and the same batch sizes of its reports."""
+    from repro.launch import serve as jax_serve
+    from repro_torch.launch import serve
+    ref, _ = _launch(jax_serve.run, argv, capsys, _SEMANTIC)
+    got, result = _launch(serve.run, argv + ["--device", "cpu"], capsys,
+                          _SEMANTIC)
+    assert got == ref
+    assert result["rows"] == int(got[0])
+    assert repr(result["batch_sizes"]) == got[1]
+
+
+def test_serve_launcher_defaults_to_the_gpu(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(["--semantic"])
