@@ -184,7 +184,15 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      request finished and decode attention launched 16 times a decode
      step, one call in 7 held against the plain version over the
      launcher's 256-position cache;
-  16. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  16. the sharded trainer on the card: a process group of world size 1
+     (NCCL), a (1, 1) mesh ``("data", "model")``
+     (``launch.mesh.make_process_mesh``), olmo-1b cut to 2 layers in f32
+     trained 2 steps through ``build_trainer(mesh=)`` (``DTensor`` params,
+     ZeRO-1 state), each step's loss and grad norm, the first step's
+     gradients and the weights after both held to the unsharded steps on
+     the same card at phase 14's f32 tolerances (loss 1e-5 relative, each
+     leaf 1e-4 of its largest magnitude); no kernel launched, at most 30 s;
+  17. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
      qwen1.5-32b, deepseek-moe-16b, whisper-base, phi-3-vision-4.2b,
@@ -3415,6 +3423,105 @@ KERNEL_RUN_KEYS = ("max_abs_err", "ok", "ms", "plain_ms", "bound_ms",
 DEVICE_KEYS = ("device_ms", "library_device_ms")    # where a row has them
 
 
+# --------------------------------------------------------------------------
+# phase 16: the sharded trainer on a (1, 1) mesh of the card
+# --------------------------------------------------------------------------
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 128
+MESH_TRAIN_MAX_S = 30.0
+# written in PERF.md before the phase's first run on the card
+MESH_TRAIN_PREDICTED = {"phase_wall_s": [8.0, 25.0]}
+
+
+def mesh_train_path(dev) -> dict:
+    """Phase 16: ``build_trainer(mesh=)`` on a (1, 1) mesh of the card in a
+    process group of one rank, held to the unsharded step."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import (free_port, init_process,
+                                         make_process_mesh)
+    from repro_torch.models import sharding as S
+    from repro_torch.params import init_params
+    from repro_torch.training import HParams, adamw_init, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import value_and_grad
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    counts = _kernel_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    init_process(0, 1, free_port())
+    try:
+        mesh = make_process_mesh((1, 1), ("data", "model"))
+        cfg = _train_cfg(num_layers=MESH_TRAIN_LAYERS,
+                         param_dtype="float32", compute_dtype="float32")
+        hp = HParams()
+        params = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        data = _train_batches(cfg, dev)
+        _, g1 = value_and_grad(cfg, params, data[0])
+        step1 = make_train_step(cfg, hp)
+        p1, o1, plain = params, adamw_init(params), []
+        for b in data:
+            p1, o1, m = step1(p1, o1, b)
+            plain.append(m)
+        del o1
+        step, (ps, os_) = T.build_trainer(cfg, hp, mesh, MESH_TRAIN_BATCH,
+                                          MESH_TRAIN_SEQ)
+        placed = S.put(params, mesh, ps)
+        opt = T.place_opt(placed, mesh, os_)
+        _, gm = value_and_grad(cfg, placed, data[0],
+                               S.MeshPolicy(mesh, cfg, MESH_TRAIN_BATCH))
+        sharded = []
+        for b in data:
+            placed, opt, m = step(placed, opt, b)
+            sharded.append(m)
+        rows = [{"step": i, "loss": float(a["loss"]),
+                 "plain_loss": float(b["loss"]),
+                 "grad_norm": float(a["grad_norm"]),
+                 "plain_grad_norm": float(b["grad_norm"])}
+                for i, (a, b) in enumerate(zip(sharded, plain))]
+
+        def worst(tree, ref):
+            return max(max_err(S.full(x), y) / max(
+                float(y.float().abs().max()), 1e-30)
+                for x, y in zip(tree_leaves(tree), tree_leaves(ref)))
+        grads_err, params_err = worst(gm, g1), worst(placed, p1)
+        placements = sorted({str(tuple(x.placements))
+                             for x in tree_leaves(placed)})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counts.items()}
+    log(phase="mesh_train", card=card_line(), arch=TRAIN,
+        layers=MESH_TRAIN_LAYERS, mesh=[1, 1], world=1, backend="nccl",
+        batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, rows=rows,
+        grads_err=grads_err, params_err=params_err, placements=placements,
+        launches=launches, wall_s=wall,
+        predicted_phase_wall_s=MESH_TRAIN_PREDICTED["phase_wall_s"])
+    for r in rows:
+        check(abs(r["loss"] - r["plain_loss"]) <= TRAIN_LOSS_RTOL
+              * abs(r["plain_loss"]), f"mesh train: loss {r}")
+        check(abs(r["grad_norm"] - r["plain_grad_norm"]) <= TRAIN_GRAD_TOL
+              * abs(r["plain_grad_norm"]), f"mesh train: grad norm {r}")
+    check(grads_err <= TRAIN_GRAD_TOL, f"mesh train: grads {grads_err}")
+    check(params_err <= TRAIN_GRAD_TOL, f"mesh train: params {params_err}")
+    check(all(n == 0 for n in launches.values()),
+          f"mesh train: the train steps launched kernels {launches}")
+    check(wall <= MESH_TRAIN_MAX_S, f"mesh train: {wall:.1f} s")
+    return launches
+
+
+def _train_batches(cfg, dev):
+    from repro_torch.training.data import DataConfig, SyntheticTokenPipeline
+    data = SyntheticTokenPipeline(DataConfig(
+        cfg.vocab_size, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, seed=SEED))
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(i).items()}
+            for i in range(MESH_TRAIN_STEPS)]
+
+
 def run_keys(row) -> dict:
     return {k: row[k] for k in KERNEL_RUN_KEYS + DEVICE_KEYS if k in row}
 
@@ -3487,6 +3594,8 @@ def main() -> int:
     train = train_path(dev)
     free_device("train")
     shard_row, sharded, served = sharded_path(dev)
+    free_device("sharded_serve")
+    mesh_train_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,

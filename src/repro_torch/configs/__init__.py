@@ -42,8 +42,10 @@ def _mod(arch: str):
     return importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
 
 
-def get_config(arch: str):
-    return _mod(arch).CONFIG
+def get_config(arch: str, *, shard_multiple: int = 1):
+    cfg = _mod(arch).CONFIG
+    return cfg.replace(shard_multiple=shard_multiple) if shard_multiple > 1 \
+        else cfg
 
 
 def get_smoke_config(arch: str):

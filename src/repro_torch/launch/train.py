@@ -16,11 +16,23 @@ Differences from the JAX package: ``--device`` (default: the GPU, as
 every entry point of the port, ``repro_torch.device``) and ``--layers``
 (cut the depth to that many layers; 0 keeps the config's); weights are
 the port's draw (``repro_torch.params.init_params`` from ``--seed``), not
-``jax.random``'s; ``build_trainer`` has only its ``mesh=None`` path (the
-mesh path waits for the port's sharding, ``ROADMAP.md`` A.12); the
-straggler watchdog times each step to the loss on the host (the JAX
-trainer times the step's dispatch); ``run`` also takes ``on_step``,
-called after each step with (step, params, metrics, step seconds).
+``jax.random``'s; the straggler watchdog times each step to the loss on
+the host (the JAX trainer times the step's dispatch); ``run`` also takes
+``on_step``, called after each step with (step, params, metrics, step
+seconds).  ``run`` has no mesh flag, as the JAX package's has none.
+
+Over a mesh (``build_trainer(cfg, hp, mesh=...)``, ``mesh`` a
+``launch.mesh.ProcessMesh``, called on every rank): the step takes the
+params and the optimizer state as ``DTensor``s placed by the returned
+specs (``sharding.put`` slices a full tree, held alike on every rank,
+locally; ``place_opt`` builds a fresh state on the mesh) and the batch in full on every rank (placed by
+``batch_specs`` inside the step), and returns them placed the same way,
+as the reference's ``in_shardings`` and ``out_shardings`` place them.
+``gather`` takes a placed tree back to full tensors.  A checkpoint saves
+full tensors from rank 0 (``CheckpointManager.save`` gathers a
+``DTensor`` state leaf by leaf) and ``restore_on_mesh`` reads one back
+onto any mesh, leaf by leaf: a checkpoint written on one mesh restores
+on another, and in either package.
 """
 
 from __future__ import annotations
@@ -31,20 +43,61 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.models import sharding as S
 from repro_torch.params import init_params
 from repro_torch.training import HParams, adamw_init, make_train_step
+from repro_torch.training.optimizer import F32, opt_specs
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import (DataConfig, StragglerWatchdog,
                                        SyntheticTokenPipeline)
 
 
+def param_shapes(cfg):
+    """The params' tree on the meta device: shapes without storage (the
+    reference's ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, None, "meta")
+
+
 def build_trainer(cfg, hp, mesh=None, global_batch=8, seq_len=64):
-    """Returns (train_step_fn, None): the step on one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_trainer: the mesh path waits for the port's sharding "
-            "(ROADMAP.md, A.12)")
-    return make_train_step(cfg, hp), None
+    """Returns (train_step_fn, None) on one device, or over ``mesh``
+    (train_step_fn, (pspecs, ospecs)): the params' and the optimizer
+    state's specs (ZeRO-1)."""
+    if mesh is None:
+        return make_train_step(cfg, hp), None
+    policy = S.MeshPolicy(mesh, cfg, global_batch)
+    pspecs = S.param_specs(cfg, mesh)
+    ospecs = opt_specs(pspecs, param_shapes(cfg), mesh)
+    inner = make_train_step(cfg, hp, policy)
+
+    def step(params, opt, batch):
+        params = S.put(params, mesh, pspecs)
+        opt = S.put(opt, mesh, ospecs)
+        return inner(params, opt, batch)
+    return step, (pspecs, ospecs)
+
+
+def place_opt(params, mesh, ospecs):
+    """A fresh AdamW state (``adamw_init``) for placed or full ``params``,
+    built leaf by leaf on the mesh by ``ospecs``: each rank holds only its
+    ZeRO-1 shards of the master weights and moments."""
+    master = S.map_specs(
+        lambda p, spec: S.put_leaf(p.detach().to(F32), mesh, spec), params,
+        ospecs["master"])
+    zeros = [S.map_specs(lambda m, _: torch.zeros_like(m), master, ospecs[k])
+             for k in ("m", "v")]
+    return {"step": torch.zeros((), dtype=torch.int32, device=mesh.device),
+            "master": master, "m": zeros[0], "v": zeros[1]}
+
+
+def restore_on_mesh(mgr, mesh, specs, step=None):
+    """A checkpoint of ``mgr`` (the latest, or ``step``) read leaf by leaf
+    onto ``mesh``; ``specs``: {"params": pspecs, "opt": ospecs}."""
+    step = mgr.latest_step() if step is None else step
+    return mgr.restore(step, mesh.device,
+                       place=S.placer(mesh, specs, mesh.device))
+
+
+gather = S.gather
 
 
 def run(argv=None, on_step=None):

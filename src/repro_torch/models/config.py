@@ -15,9 +15,18 @@ and ``remat_policy`` (activation checkpointing per layer, "full" or
 the route that ``loss_fn`` takes (``models/model.py``); serving runs the
 kernels whatever they say.  Fields that only the TPU lowering reads
 (``use_pallas``, ``unroll_*``, the cost-probe ``stages_override`` and
-``enc_stages_override``, sharding padding, ``moe_gathered_spec``) are
-dropped: the port picks its kernels by the route and the device a
-tensor lives on, not by a flag.  So are ``max_seq``, which no code of
+``enc_stages_override``) are dropped: the port picks its kernels by the
+route and the device a tensor lives on, not by a flag.  The sharding
+fields are kept with the JAX package's meanings: ``shard_multiple``
+pads the query heads (and an MHA config's KV heads) and the vocabulary
+up to a multiple of it (``padded_num_heads``, ``padded_num_kv_heads``,
+``padded_vocab``), and the weights are drawn at the padded shapes; 1,
+the default, pads nothing.  ``moe_gathered_spec`` ("replicated" or
+"auto") is the reference's switch for whether its policy places the MoE
+dispatch tensors ("moe_gathered", "moe_hidden"); it has no effect on the
+port's mesh path, where the dispatch runs on the local shards
+(``sharding.moe_on_shards``) and no policy hook reaches those tensors,
+so "replicated" and "auto" run alike.  So are ``max_seq``, which no code of
 the JAX package reads, and ``train_accum_steps``, which only its dry run
 reads (the trainer takes ``HParams.accum_steps``).
 
@@ -106,6 +115,10 @@ class ModelConfig:
     attn_impl: str = "masked"        # masked | blocked (plain attention)
     remat: bool = True               # activation checkpointing per layer
     remat_policy: str = "full"       # full | dots (save matmul outputs)
+    # ---- sharding ----
+    moe_gathered_spec: str = "replicated"   # replicated | auto; no effect
+                                            #   on the port's mesh path
+    shard_multiple: int = 1          # pad heads and vocab to a multiple; 1: none
 
     # ---------------- derived ----------------
     @property
@@ -113,10 +126,28 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def padded_num_heads(self) -> int:
+        """Q heads padded up so head-sharding divides the model axis."""
+        m = self.shard_multiple
+        if m <= 1 or self.num_heads < m:
+            return self.num_heads
+        return _round_up(self.num_heads, m)
+
+    @property
+    def padded_num_kv_heads(self) -> int:
+        """MHA (H == KV) pads both so the 1:1 grouping survives padding;
+        GQA keeps its true KV head count (replicated if not divisible)."""
+        if self.num_heads == self.num_kv_heads:
+            return self.padded_num_heads
+        return self.num_kv_heads
+
+    @property
     def padded_vocab(self) -> int:
-        """The embedding's row count: the vocabulary itself (the JAX
-        package pads it for sharding, which the port does not do yet)."""
-        return self.vocab_size
+        """The embedding's and the head's row count: the vocabulary
+        rounded up to ``shard_multiple``; the padded rows are drawn like
+        the others and masked out of the loss and of greedy decoding."""
+        m = self.shard_multiple
+        return _round_up(self.vocab_size, m) if m > 1 else self.vocab_size
 
     @property
     def theta_local(self) -> float:

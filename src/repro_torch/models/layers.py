@@ -35,6 +35,16 @@ visits only the block pairs the mask can reach), the Mamba scan by
 discretised tensors exist one chunk at a time), the RG-LRU by
 ``linear_scan``.  The kernels have no backward (nor have the Pallas
 kernels), so a loss goes through the plain route.
+
+Sharding is injected through a ``policy`` (see ``sharding.py``), at the
+JAX package's call sites and under its names: ``policy(x, name)``
+constrains an activation to its named layout.  The default
+``NULL_POLICY`` makes every constraint a no-op, so the same code runs on
+one device.  Under a ``sharding.MeshPolicy`` the tensors are ``DTensor``s
+and the few ops DTensor cannot run as they are (rope's angles, the plain
+attention, the causal conv, the scans, the MoE dispatch) run on the local
+shards through ``sharding``'s ``*_on_shards``; the plain tensors of one
+device never take those branches.
 """
 
 from __future__ import annotations
@@ -45,17 +55,34 @@ import numbers
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rg_lru import ops as rglru_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
+from . import sharding
 from .config import ModelConfig
 
 F32 = torch.float32
 NEG = -1e30
 ROUTES = ("kernels", "plain")
+
+
+# --------------------------------------------------------------------------
+# sharding policy indirection
+# --------------------------------------------------------------------------
+class NullPolicy:
+    """No-op activation-sharding policy (single-device tests)."""
+
+    dp_size = 1     # data-parallel world size (MoE decode grouping hint)
+
+    def __call__(self, x, name: str):
+        return x
+
+
+NULL_POLICY = NullPolicy()
 
 
 def positions_vector(pos, B: int, device) -> torch.Tensor:
@@ -105,6 +132,9 @@ def rms_head_norm(scale, x):
 # --------------------------------------------------------------------------
 def rope_apply(x, positions, theta: float):
     """x: (B, S, H, hd), positions: (B, S) or (S,) int."""
+    if isinstance(x, DTensor):
+        return sharding.rope_on_shards(
+            lambda xl, pl: rope_apply(xl, pl, theta), x, positions)
     hd = x.shape[-1]
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
@@ -288,7 +318,7 @@ def init_attention(cfg: ModelConfig, generator, lead=(), device=None,
     N(0, 1) scaled by fan-in^-0.5, cast to ``param_dtype``.  A decoder's
     cross-attention (``cross``) has no qkv bias."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    H, KH = cfg.num_heads, cfg.num_kv_heads
+    H, KH = cfg.padded_num_heads, cfg.padded_num_kv_heads
     dt = cfg.param_torch_dtype
     sd = d ** -0.5
     p = {
@@ -314,7 +344,8 @@ def _project(x, w):
     return (x @ w.reshape(d, n * hd)).view(*x.shape[:-1], n, hd)
 
 
-def attn_qkv(cfg: ModelConfig, p, x, positions, kind: str, rope: bool = True):
+def attn_qkv(cfg: ModelConfig, p, x, positions, kind: str,
+             policy=NULL_POLICY, rope: bool = True):
     """Project to q, k, v (+bias, qk-norm, rope)."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
@@ -328,12 +359,23 @@ def attn_qkv(cfg: ModelConfig, p, x, positions, kind: str, rope: bool = True):
         theta = cfg.rope_theta if kind in ("attn", "global") else cfg.theta_local
         q = rope_apply(q, positions, theta)
         k = rope_apply(k, positions, theta)
+    q = policy(q, "act_q")
+    k = policy(k, "act_kv")
+    v = policy(v, "act_kv")
     return q, k, v
 
 
-def attn_out(p, o):
+def attn_out(p, o, policy=NULL_POLICY):
     H, hd, d = p["wo"].shape
-    return o.reshape(*o.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+    y = o.reshape(*o.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+    return policy(y, "act")
+
+
+def _attend(fn, q, k, v):
+    """``fn(q, k, v)``, on the local shards where q is a ``DTensor``."""
+    if isinstance(q, DTensor):
+        return sharding.attention_on_shards(fn, q, k, v)
+    return fn(q, k, v)
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -341,19 +383,22 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def self_attention_train(cfg: ModelConfig, p, x, kind: str, positions,
-                         causal: bool = True, route: str = "kernels"):
-    q, k, v = attn_qkv(cfg, p, x, positions, kind)
+                         policy=NULL_POLICY, causal: bool = True,
+                         route: str = "kernels"):
+    q, k, v = attn_qkv(cfg, p, x, positions, kind, policy)
     window = _window(cfg, kind)
     if route == "kernels":
         o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif cfg.attn_impl == "blocked":
-        o = blocked_attention(q, k, v, causal=causal, window=window,
-                              block_q=cfg.attn_block_k,
-                              block_k=cfg.attn_block_k)
+        o = _attend(lambda q, k, v: blocked_attention(
+            q, k, v, causal=causal, window=window, block_q=cfg.attn_block_k,
+            block_k=cfg.attn_block_k), q, k, v)
     else:
-        o = chunked_attention(q, k, v, causal=causal, window=window,
-                              block_k=cfg.attn_block_k)
-    return attn_out(p, o), (k, v)
+        o = _attend(lambda q, k, v: chunked_attention(
+            q, k, v, causal=causal, window=window,
+            block_k=cfg.attn_block_k), q, k, v)
+    o = policy(o, "act_q")
+    return attn_out(p, o, policy), (k, v)
 
 
 def quantize_kv(x):
@@ -394,7 +439,8 @@ def cache_kv(cfg: ModelConfig, cache):
             dequantize_kv(cache["v"], cache["v_scale"], dt))
 
 
-def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos):
+def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos,
+                          policy=NULL_POLICY):
     """x: (B, 1, d). cache: {"k","v"}: (B, Smax, KH, hd), with
     {"k_scale","v_scale"}: (B, Smax, KH, 1) on the int8 cache.  Returns
     (y, cache).
@@ -408,18 +454,21 @@ def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos):
     """
     B = x.shape[0]
     pos_b = positions_vector(pos, B, x.device)
-    q, k, v = attn_qkv(cfg, p, x, pos_b[:, None], kind)
+    q, k, v = attn_qkv(cfg, p, x, pos_b[:, None], kind, policy)
     rows = torch.arange(B, device=x.device)
     at = pos_b.long()
     for name, t in cache_entries(cfg, k, v).items():
         cache[name][rows, at] = t[:, 0].to(cache[name].dtype)
+        cache[name] = policy(cache[name], "kv_cache")
     k_use, v_use = cache_kv(cfg, cache)
+    q = policy(q, "act_q_decode")
     o = decode_ops.decode_attention(q, k_use, v_use, pos_b,
                                     window=_window(cfg, kind))
-    return attn_out(p, o), cache
+    return attn_out(p, o, policy), cache
 
 
-def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off):
+def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off,
+                          policy=NULL_POLICY):
     """Chunked prefill: a chunk of C prompt tokens against an existing
     cache.  x: (B, C, d); off: int, or (B,) — tokens already cached per
     row.  The chunk's K/V are written in place at ``[off, off + C)``
@@ -435,7 +484,7 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off):
     B, C, _ = x.shape
     off_b = positions_vector(off, B, x.device)
     positions = off_b[:, None] + torch.arange(C, device=x.device)[None, :]
-    q, k, v = attn_qkv(cfg, p, x, positions, kind)
+    q, k, v = attn_qkv(cfg, p, x, positions, kind, policy)
     Smax = cache["k"].shape[1]
     entries = cache_entries(cfg, k, v)
     if isinstance(off, numbers.Integral):
@@ -448,25 +497,33 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off):
         rows = torch.arange(B, device=x.device)[:, None].expand(B, C)
         for name, t in entries.items():
             cache[name][rows[keep], at[keep]] = t[keep].to(cache[name].dtype)
+    cache["k"] = policy(cache["k"], "kv_cache")
+    cache["v"] = policy(cache["v"], "kv_cache")
     k_all, v_all = cache_kv(cfg, cache)
+    q = policy(q, "act_q")
     o = chunked_attention(q, k_all, v_all, causal=True,
                           window=_window(cfg, kind), q_offset=off_b,
                           block_k=cfg.attn_block_k)
-    return attn_out(p, o), cache
+    o = policy(o, "act_q")
+    return attn_out(p, o, policy), cache
 
 
-def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v):
+def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v,
+                    policy=NULL_POLICY):
     """Decoder cross-attention over the encoder's keys and values (B, Se,
     KH, hd), no rope: the plain chunked attention without a mask."""
     q = _project(x, p["wq"])
-    o = chunked_attention(q, enc_k, enc_v, causal=False,
-                          block_k=cfg.attn_block_k)
-    return attn_out(p, o)
+    q = policy(q, "act_q")
+    o = _attend(lambda q, k, v: chunked_attention(
+        q, k, v, causal=False, block_k=cfg.attn_block_k), q, enc_k, enc_v)
+    o = policy(o, "act_q")
+    return attn_out(p, o, policy)
 
 
-def encode_cross_kv(cfg: ModelConfig, p, enc_out):
+def encode_cross_kv(cfg: ModelConfig, p, enc_out, policy=NULL_POLICY):
     """The cross-attention keys and values of the encoder's output."""
-    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
+    k, v = _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
+    return policy(k, "act_kv"), policy(v, "act_kv")
 
 
 # --------------------------------------------------------------------------
@@ -487,11 +544,13 @@ def _act(cfg: ModelConfig, x):
     return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def ffn_apply(cfg: ModelConfig, p, x):
+def ffn_apply(cfg: ModelConfig, p, x, policy=NULL_POLICY):
     h = _act(cfg, x @ p["w1"])
     if cfg.glu:
         h = h * (x @ p["w3"])
-    return h @ p["w2"]
+    h = policy(h, "act_ff")
+    y = h @ p["w2"]
+    return policy(y, "act")
 
 
 # --------------------------------------------------------------------------
@@ -525,13 +584,16 @@ def init_moe(cfg: ModelConfig, generator, lead=(), device=None):
     return p
 
 
-def moe_groups(x):
+def moe_groups(x, dp_size: int = 1):
     """x: (B, S, d) as dispatch groups (G, T, d).  A batch row is a group;
     a decode batch (S == 1, B > 1) is regrouped into ``min(B, dp_size)``
-    groups, which without a sharding policy (``dp_size`` 1, the JAX
-    package's ``NULL_POLICY``) is one group of B tokens."""
+    groups (``policy.dp_size``: one group of B tokens under
+    ``NULL_POLICY``, one per data shard under a mesh)."""
     B, S, d = x.shape
-    return x.reshape(1, B, d) if S == 1 and B > 1 else x
+    if S == 1 and B > 1:
+        G = min(B, max(dp_size, 1))
+        return x.reshape(G, B // G, d)
+    return x
 
 
 def moe_route(cfg: ModelConfig, router, x):
@@ -576,35 +638,22 @@ def moe_route(cfg: ModelConfig, router, x):
             "wtab": wtab, "slot": slot, "dropped": (~keep).sum(dim=-1)}
 
 
-def moe_apply(cfg: ModelConfig, p, x):
-    """Group-local capacity dispatch (``moe_groups``, ``moe_route``).
-    x: (B, S, d).  Returns (y, aux): y (B, S, d) in x's dtype and the
-    Switch-style load-balance loss (f32 scalar) of the undropped counts.
-
-    Each expert's slots gather their tokens' rows into one (E, G*C, d)
-    tensor, whose products ``act(x @ w1) * (x @ w3) @ w2`` are batched
-    over E; each slot's output is scaled by its gate cast to x's dtype.
-    The JAX package then scatter-adds the slots into the tokens in slot
-    order; here each token gathers the outputs of its K slots (a dropped
-    assignment reads a zero row) and adds them in that same order, one
-    addition at a time in x's dtype: no floating-point atomics, so two
-    runs on the card are bitwise equal.  The shared experts' FFN is added
-    last."""
-    orig_shape = x.shape
-    x = moe_groups(x)
+def _moe_experts(cfg: ModelConfig, x, r, w1, w2, w3, policy=NULL_POLICY):
+    """The routed experts' outputs per token: x (G, S, d) the groups, r
+    the routing (``table``, ``wtab``, ``slot``); (G, S, d) in x's dtype."""
     G, S, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
     C = cfg.moe_capacity(S)
-    r = moe_route(cfg, p["router"], x)
-
     # row g*(S+1) + t of the padded flat batch is token t of group g
     x_pad = torch.cat([x, x.new_zeros((G, 1, d))], dim=1).view(-1, d)
     rows = r["table"] + torch.arange(G, device=x.device)[:, None] * (S + 1)
     xe = x_pad[rows.view(G, E, C).transpose(0, 1).reshape(E, G * C)]
-    h = _act(cfg, torch.bmm(xe, p["w1"]))
+    xe = policy(xe, "moe_gathered")
+    h = _act(cfg, torch.bmm(xe, w1))
     if cfg.glu:
-        h = h * torch.bmm(xe, p["w3"])
-    out = torch.bmm(h, p["w2"])                             # (E, G*C, d)
+        h = h * torch.bmm(xe, w3)
+    h = policy(h, "moe_hidden")
+    out = torch.bmm(h, w2)                                  # (E, G*C, d)
     w = r["wtab"].view(G, E, C).transpose(0, 1).reshape(E, G * C, 1)
     out = out * w.to(out.dtype)
 
@@ -619,12 +668,49 @@ def moe_apply(cfg: ModelConfig, p, x):
     y = parts[:, :, 0]
     for k in range(1, K):
         y = y + parts[:, :, k]
-    y = y.reshape(orig_shape)
-    if cfg.num_shared_experts:
-        y = y + ffn_apply(_shared_cfg(cfg), p["shared"],
-                          x.reshape(orig_shape))
+    return y
 
-    frac = r["counts"].to(F32).sum(dim=0) / (G * S * K)
+
+def moe_apply(cfg: ModelConfig, p, x, policy=NULL_POLICY):
+    """Group-local capacity dispatch (``moe_groups``, ``moe_route``).
+    x: (B, S, d).  Returns (y, aux): y (B, S, d) in x's dtype and the
+    Switch-style load-balance loss (f32 scalar) of the undropped counts.
+
+    Each expert's slots gather their tokens' rows into one (E, G*C, d)
+    tensor, whose products ``act(x @ w1) * (x @ w3) @ w2`` are batched
+    over E; each slot's output is scaled by its gate cast to x's dtype.
+    The JAX package then scatter-adds the slots into the tokens in slot
+    order; here each token gathers the outputs of its K slots (a dropped
+    assignment reads a zero row) and adds them in that same order, one
+    addition at a time in x's dtype: no floating-point atomics, so two
+    runs on the card are bitwise equal.  The shared experts' FFN is added
+    last.  Under a mesh the routing and the experts run on the local
+    shards (``sharding.moe_on_shards``): the groups of the local data
+    shard, the experts' local d_ff."""
+    orig_shape = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    weights = [p["w1"], p["w2"], p["w3"] if cfg.glu else None]
+    if isinstance(x, DTensor):
+        # the local rows are one data shard's groups: dp_size 1 locally
+        y, r = sharding.moe_on_shards(
+            lambda xl, rl: moe_route(cfg, rl, moe_groups(xl)),
+            lambda xl, rl, ws: _moe_experts(
+                cfg, moe_groups(xl), rl, ws[0], ws[1],
+                ws[2] if cfg.glu else None).reshape(xl.shape),
+            x, p["router"], [w for w in weights if w is not None])
+        G, S_, _ = r["probs"].shape
+    else:
+        x = moe_groups(x, policy.dp_size)
+        G, S_, d = x.shape
+        r = moe_route(cfg, p["router"], x)
+        y = _moe_experts(cfg, x, r, *weights, policy)
+    y = y.reshape(orig_shape)
+    x = x.reshape(orig_shape)
+    y = policy(y, "act")
+    if cfg.num_shared_experts:
+        y = y + ffn_apply(_shared_cfg(cfg), p["shared"], x, policy)
+
+    frac = r["counts"].to(F32).sum(dim=0) / (G * S_ * K)
     imp = r["probs"].mean(dim=(0, 1))
     return y, E * torch.sum(frac * imp)
 
@@ -650,6 +736,9 @@ def linear_scan(a, b, h0=None, *, chunk: int = 256):
     Returns (h_all (B, S, ...), h_last (B, ...)).  Chunks of ``chunk``
     steps run one after another, each as a doubling scan (the JAX
     package runs an associative scan inside each chunk)."""
+    if isinstance(a, DTensor):
+        return sharding.scan_on_shards(
+            lambda a, b, h0: linear_scan(a, b, h0, chunk=chunk), a, b, h0)
     S = a.shape[1]
     h = torch.zeros_like(a[:, 0]) if h0 is None else h0
     outs = []
@@ -669,6 +758,10 @@ def causal_conv(x, w, b, state=None):
     """x: (B, S, C); w: (cw, C); state: (B, cw-1, C) prior context or None.
 
     Returns (y, new_state) where new_state is the trailing cw-1 inputs."""
+    if isinstance(x, DTensor) and state is None:
+        y = sharding.conv_on_shards(lambda xl, wl, bl: causal_conv(xl, wl, bl)[0],
+                             x, w, b)
+        return y, None
     cw = w.shape[0]
     if state is None:
         state = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
@@ -721,6 +814,10 @@ def fused_selective_scan(cfg: ModelConfig, x_c, dt, Bm, Cm, A_log, D,
     ``jax.checkpoint``-ed chunk body; its associative scan within a chunk
     is the doubling scan here).  x_c, dt (f32), Bm, Cm: (B, S, ...); h0:
     (B, di, state) f32 or None.  Returns (y (B, S, di) f32, h_last)."""
+    if isinstance(x_c, DTensor):
+        return sharding.fused_scan_on_shards(
+            lambda *t: fused_selective_scan(cfg, *t), x_c, dt, Bm, Cm, A_log,
+            D, h0)
     B, S, di = x_c.shape
     A = -torch.exp(A_log.to(F32))
 
@@ -743,8 +840,8 @@ def fused_selective_scan(cfg: ModelConfig, x_c, dt, Bm, Cm, A_log, D,
     return torch.cat(ys, dim=1) + D.to(F32) * x_c.to(F32), h
 
 
-def _mamba_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False,
-                route: str = "kernels"):
+def _mamba_core(cfg: ModelConfig, p, x_c, policy=NULL_POLICY, h0=None,
+                return_state=False, route: str = "kernels"):
     """x_c: (B, S, di) post-conv activations -> (y, h_last).
 
     On the kernels route without a state in or out (the full-sequence
@@ -773,30 +870,36 @@ def _mamba_core(cfg: ModelConfig, p, x_c, h0=None, return_state=False,
     return y.to(x_c.dtype), (h_last if return_state else None)
 
 
-def mamba_apply_train(cfg: ModelConfig, p, x, route: str = "kernels"):
+def mamba_apply_train(cfg: ModelConfig, p, x, policy=NULL_POLICY,
+                      route: str = "kernels"):
     xz = x @ p["in_proj"]
+    xz = policy(xz, "act_inner2")
     x_in, z = xz.chunk(2, dim=-1)
     x_c, _ = causal_conv(x_in, p["conv_w"], p["conv_b"])
     x_c = F.silu(x_c)
-    y, _ = _mamba_core(cfg, p, x_c, route=route)
+    y, _ = _mamba_core(cfg, p, x_c, policy, route=route)
     y = y * F.silu(z)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    return policy(out, "act")
 
 
-def mamba_apply_decode(cfg: ModelConfig, p, x, cache):
+def mamba_apply_decode(cfg: ModelConfig, p, x, cache, policy=NULL_POLICY):
     """x: (B, C, d), any C; cache: {"conv": (B, cw-1, di), "ssm": (B, di,
     s)}.  Returns (y, cache): the cache given, its state written in place
     (the engine hands in views of its slot rows)."""
     xz = x @ p["in_proj"]
+    xz = policy(xz, "act_inner2")
     x_in, z = xz.chunk(2, dim=-1)
     x_c, conv_state = causal_conv(x_in, p["conv_w"], p["conv_b"],
                                   state=cache["conv"])
     x_c = F.silu(x_c)
-    y, h_last = _mamba_core(cfg, p, x_c, h0=cache["ssm"], return_state=True)
+    y, h_last = _mamba_core(cfg, p, x_c, policy, h0=cache["ssm"],
+                            return_state=True)
     y = y * F.silu(z)
-    cache["conv"].copy_(conv_state)
-    cache["ssm"].copy_(h_last)
-    return y @ p["out_proj"], cache
+    out = y @ p["out_proj"]
+    cache["conv"].copy_(policy(conv_state, "ssm_conv"))
+    cache["ssm"].copy_(policy(h_last, "ssm_state"))
+    return policy(out, "act"), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, B: int, dtype, lead=(), device=None):
@@ -874,28 +977,34 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def rglru_apply_train(cfg: ModelConfig, p, x, route: str = "kernels"):
+def rglru_apply_train(cfg: ModelConfig, p, x, policy=NULL_POLICY,
+                      route: str = "kernels"):
     xb = x @ p["w_x"]
     g = _gelu(x @ p["w_gate"])
+    xb = policy(xb, "act_inner")
+    g = policy(g, "act_inner")
     x_c, _ = causal_conv(xb, p["conv_w"], p["conv_b"])
     h, _ = _rglru_core(cfg, p, x_c, route=route)
     y = (h * g.to(F32)).to(x.dtype)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    return policy(out, "act")
 
 
-def rglru_apply_decode(cfg: ModelConfig, p, x, cache):
+def rglru_apply_decode(cfg: ModelConfig, p, x, cache, policy=NULL_POLICY):
     """x: (B, C, d), any C; cache: {"conv": (B, cw-1, di), "h": (B, di)
     f32}.  Returns (y, cache): the cache given, its state written in
     place (the engine hands in views of its slot rows)."""
     xb = x @ p["w_x"]
     g = _gelu(x @ p["w_gate"])
+    xb = policy(xb, "act_inner")
     x_c, conv_state = causal_conv(xb, p["conv_w"], p["conv_b"],
                                   state=cache["conv"])
     h, h_last = _rglru_core(cfg, p, x_c, h0=cache["h"], return_state=True)
     y = (h * g.to(F32)).to(x.dtype)
-    cache["conv"].copy_(conv_state)
-    cache["h"].copy_(h_last)
-    return y @ p["out_proj"], cache
+    out = y @ p["out_proj"]
+    cache["conv"].copy_(policy(conv_state, "ssm_conv"))
+    cache["h"].copy_(policy(h_last, "ssm_state"))
+    return policy(out, "act"), cache
 
 
 def init_rglru_cache(cfg: ModelConfig, B: int, dtype, lead=(), device=None):

@@ -124,22 +124,26 @@ def _unflatten(flat: dict):
     return normalize(root)
 
 
-def load_checkpoint(path, device="cpu"):
+def load_checkpoint(path, device="cpu", place=None):
     """Read one ``step_*.npz`` checkpoint with numpy alone: flattened key
     paths, bf16 stored as a uint16 view and named in ``__dtypes__``.  bf16
     becomes ``torch.bfloat16`` by reinterpreting the bits.  Returns the
-    saved tree (params, optimizer state, ...) with tensor leaves."""
-    with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
-    dtypes = {}
-    if "__dtypes__" in flat:
-        dtypes = json.loads(flat.pop("__dtypes__").tobytes().decode())
+    saved tree (params, optimizer state, ...) with tensor leaves on
+    ``device``, or ``place(key, host tensor)`` of each, read one at a
+    time."""
     out = {}
-    for key, arr in flat.items():
-        if dtypes.get(key) == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16).copy()).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr.copy())
-        out[key] = t.to(device)
+    with np.load(path, allow_pickle=False) as z:
+        dtypes = {}
+        if "__dtypes__" in z.files:
+            dtypes = json.loads(z["__dtypes__"].tobytes().decode())
+        for key in z.files:
+            if key == "__dtypes__":
+                continue
+            arr = z[key]                  # a fresh array: no copy needed
+            if dtypes.get(key) == "bfloat16":
+                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(arr)
+            out[key] = t.to(device) if place is None else place(key, t)
+            del arr, t
     return _unflatten(out)

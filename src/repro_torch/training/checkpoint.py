@@ -23,6 +23,15 @@ arrays) and copies them to the host before it returns, also with
 ``async_save``, so the caller may update its state in place at once;
 ``restore`` and ``restore_latest`` take the ``device`` of the tensors they
 return.
+
+A state of ``DTensor``s (the trainer over a mesh) saves full tensors from
+rank 0: every rank calls ``save``, each leaf is gathered in turn
+(``full_tensor``, a collective) and rank 0 writes it into the archive at
+once, so no rank holds more than one full leaf; the other ranks wait
+for the file (a barrier).  ``restore(step, device, place=)`` reads the
+archive one leaf at a time and hands each to ``place(key, tensor)``
+(``sharding.placer``: onto a mesh by its spec), so a state larger than a
+host's memory restores onto any mesh.
 """
 
 from __future__ import annotations
@@ -31,11 +40,14 @@ import json
 import re
 import threading
 import time
+import zipfile
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.params import load_checkpoint
 
@@ -58,6 +70,8 @@ def _host(leaf):
     its uint16 bit pattern, since numpy has no bfloat16 of its own."""
     if not torch.is_tensor(leaf):
         return np.array(leaf), False
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), True
@@ -76,8 +90,14 @@ class CheckpointManager:
     # ---- save ---------------------------------------------------------------
     def save(self, step: int, state: dict, metadata: Optional[dict] = None):
         """state: nested dicts/lists of tensors or arrays (params, opt,
-        ...), copied to the host before this returns."""
-        host = {k: _host(v) for k, v in _flatten(state).items()}
+        ...), copied to the host before this returns.  A state holding
+        ``DTensor``s is saved by every rank together (see the module's
+        docstring)."""
+        flat = _flatten(state)
+        if any(isinstance(v, DTensor) for v in flat.values()):
+            self._save_sharded(step, flat, metadata or {})
+            return
+        host = {k: _host(v) for k, v in flat.items()}
         if self.async_save:
             self.wait()
             self._pending = threading.Thread(
@@ -91,19 +111,49 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def _write(self, step: int, host: dict, metadata: dict):
-        dtypes = {k: "bfloat16" for k, (_, bf16) in host.items() if bf16}
-        enc = {k: a for k, (a, _) in host.items()}
+    def _save_sharded(self, step: int, flat: dict, metadata: dict):
+        writer = dist.get_rank() == 0
         tmp = self.dir / f"step_{step:010d}.tmp.npz"
+        dtypes = {}
+        zf = (zipfile.ZipFile(tmp, mode="w", compression=zipfile.ZIP_STORED,
+                              allowZip64=True) if writer else None)
+        try:
+            for key, leaf in flat.items():
+                if isinstance(leaf, DTensor):
+                    leaf = leaf.full_tensor()    # every rank: the gather
+                if writer:
+                    arr, bf16 = _host(leaf)
+                    if bf16:
+                        dtypes[key] = "bfloat16"
+                    _write_member(zf, key, arr)
+                    del arr
+                del leaf
+            if writer:
+                _write_member(zf, "__dtypes__", np.frombuffer(
+                    json.dumps(dtypes).encode(), np.uint8))
+        finally:
+            if zf is not None:
+                zf.close()
+        if writer:
+            self._publish(step, tmp, metadata)
+        dist.barrier()
+
+    def _publish(self, step: int, tmp: Path, metadata: dict):
         final = self.dir / f"step_{step:010d}.npz"
-        np.savez(tmp, __dtypes__=np.frombuffer(
-            json.dumps(dtypes).encode(), np.uint8), **enc)
         # wall-clock manifest timestamp  # flocklint: ignore[FLKL101]
         manifest = {"step": step, "time": time.time(), **metadata}
         (self.dir / f"step_{step:010d}.json").write_text(
             json.dumps(manifest))
         tmp.replace(final)                      # atomic publish
         self._gc()
+
+    def _write(self, step: int, host: dict, metadata: dict):
+        dtypes = {k: "bfloat16" for k, (_, bf16) in host.items() if bf16}
+        enc = {k: a for k, (a, _) in host.items()}
+        tmp = self.dir / f"step_{step:010d}.tmp.npz"
+        np.savez(tmp, __dtypes__=np.frombuffer(
+            json.dumps(dtypes).encode(), np.uint8), **enc)
+        self._publish(step, tmp, metadata)
 
     def _gc(self):
         ckpts = self.list_steps()
@@ -122,12 +172,13 @@ class CheckpointManager:
                 steps.append(int(m.group(1)))
         return sorted(steps)
 
-    def restore(self, step: int, device="cpu") -> dict:
-        return load_checkpoint(self.dir / f"step_{step:010d}.npz", device)
+    def restore(self, step: int, device="cpu", place=None) -> dict:
+        return load_checkpoint(self.dir / f"step_{step:010d}.npz", device,
+                               place)
 
-    def restore_latest(self, device="cpu") -> Optional[dict]:
+    def restore_latest(self, device="cpu", place=None) -> Optional[dict]:
         steps = self.list_steps()
-        return self.restore(steps[-1], device) if steps else None
+        return self.restore(steps[-1], device, place) if steps else None
 
     def latest_step(self) -> int:
         steps = self.list_steps()
@@ -136,3 +187,10 @@ class CheckpointManager:
     def metadata(self, step: int) -> dict:
         p = self.dir / f"step_{step:010d}.json"
         return json.loads(p.read_text()) if p.exists() else {}
+
+
+def _write_member(zf: zipfile.ZipFile, key: str, arr: np.ndarray):
+    """One ``.npy`` member of an ``.npz`` archive, as ``np.savez`` writes
+    it."""
+    with zf.open(key + ".npy", mode="w", force_zip64=True) as f:
+        np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)

@@ -8,12 +8,23 @@ params' nested dicts and lists of tensors; leaves are visited in
 ``jax.tree`` order (dict keys sorted), so sums over leaves add in the JAX
 package's order.
 
+ZeRO-1 over a mesh: ``opt_specs`` adds a "data" axis on the first
+evenly divisible replicated dim of each tensor's spec (``_zero1_spec``),
+so the 12 bytes/param of the state are spread over the whole mesh
+rather than the model axis alone.  With the state placed by those specs
+(``DTensor``s, ``models/sharding.py``), ``adamw_update`` redistributes
+each gradient to its state's placement (a reduce-scatter over "data"
+where the gradient is a partial sum, a local slice where it is
+replicated), updates ``master``, ``m`` and ``v`` on their shards, and
+redistributes the new master, cast to the param's dtype, to the param's
+placement (an all-gather over "data"): what GSPMD materialises from the
+JAX trainer's in and out shardings.
+
 Differences from the JAX package: ``adamw_update`` writes the new
 moments and master weights into the state it is given and returns that
 state (the JAX trainer donates the old state to its jitted step, which
-amounts to the same); the new params are fresh tensors.  ``opt_specs``
-and ``_zero1_spec`` (the ZeRO-1 sharding of the state over a mesh) wait
-for the port's sharding (``ROADMAP.md``, A.12).
+amounts to the same); the new params are fresh tensors.  The step
+counter stays a plain tensor on every rank under a mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +37,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.sharding import map_specs
 
 F32 = torch.float32
 
@@ -114,9 +128,14 @@ def adamw_init(params):
 
 
 def global_norm(tree):
+    """sqrt of the sum over leaves (in tree order) of their sums of
+    squares; a ``DTensor`` leaf's sum is gathered to a plain scalar."""
     total = 0
     for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(F32)))
+        sq = torch.sum(torch.square(x.to(F32)))
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
+        total = total + sq
     return torch.sqrt(total)
 
 
@@ -127,6 +146,7 @@ def adamw_update(params, grads, state, hp: HParams):
     param's dtype.  Returns (new params, state, {"grad_norm", "lr"})."""
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
+    grads = tree_map(_to_state_placement, grads, state["master"])
     gnorm = global_norm(grads)
     scale = torch.clamp_max(hp.grad_clip / (gnorm + 1e-9), 1.0)
     bc1 = 1 - hp.b1 ** step.to(F32)
@@ -138,9 +158,41 @@ def adamw_update(params, grads, state, hp: HParams):
         v.mul_(hp.b2).add_((1 - hp.b2) * g * g)
         u = (m / bc1) / (torch.sqrt(v / bc2) + hp.eps)
         master.sub_(lr * (u + hp.weight_decay * master))
-        return master.to(p.dtype, copy=True)
+        new = master.to(p.dtype, copy=True)
+        if isinstance(p, DTensor) and new.placements != p.placements:
+            new = new.redistribute(p.device_mesh, p.placements)
+        return new
 
     new_params = tree_map(upd, params, grads, state["m"], state["v"],
                           state["master"])
     state["step"] = step
     return new_params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _to_state_placement(g, master):
+    """A gradient redistributed to its optimizer state's placement (a
+    reduce-scatter or a local slice under ZeRO-1); a plain one as it is."""
+    if isinstance(master, DTensor) and tuple(g.placements) != tuple(
+            master.placements):
+        return g.redistribute(master.device_mesh, master.placements)
+    return g
+
+
+def _zero1_spec(spec, shape, data_size: int):
+    """Add 'data' on the first replicated dim that divides evenly."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (s, n) in enumerate(zip(entries, shape)):
+        if s is None and n % data_size == 0 and n >= data_size:
+            entries[i] = "data"
+            break
+    return tuple(entries)
+
+
+def opt_specs(param_spec_tree, param_shapes, mesh):
+    """Optimizer-state specs (ZeRO-1 over the 'data' axis).
+    ``param_shapes``: the params' tree of tensors (``device="meta"`` will
+    do)."""
+    data_size = mesh.shape["data"]
+    sharded = map_specs(lambda t, spec: _zero1_spec(spec, t.shape, data_size),
+                        param_shapes, param_spec_tree)
+    return {"step": (), "master": sharded, "m": sharded, "v": sharded}

@@ -23,7 +23,11 @@ config widened to hd 96 are held on the card against the CPU.  On a
 machine with two cards or more, each wrapper launches on its tensors'
 card while another is current, and the mesh-sharded scan runs over every
 card at 100,000 x 2048 against the single-card route (these skip below
-two cards, decided in the ``cards`` fixture).
+two cards, decided in the ``cards`` fixture).  On four cards, one f32
+train step of granite-smoke and of mixtral-smoke over a (2, 2) process
+mesh (NCCL, ``tests/torch_sharding_cases.py``) is held to the same step
+on one card (skips below four cards, decided in the ``four_cards``
+fixture).
 """
 
 import numpy as np
@@ -862,6 +866,37 @@ def test_sharded_route_over_the_cards(cards):
         s1, i1 = single.topk(q, k)
         np.testing.assert_allclose(s, s1, atol=1e-5, rtol=0)
         _ranks_agree(i, i1, s1)
+
+
+@pytest.fixture
+def four_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip("needs 4 CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def test_sharded_train_step_over_four_cards(four_cards, tmp_path):
+    """granite-smoke (KV heads over "model") and mixtral-smoke, two f32
+    train steps on mesh (2, 2) of four processes under NCCL against the
+    same steps on one card: both losses to 1e-5 relative; the first
+    step's gradients and AdamW's moments after it to 1e-4 of each leaf's
+    largest magnitude."""
+    import json
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_sharding_cases as C
+    out = tmp_path / "cards.json"
+    C.cards_main(out)
+    res = json.loads(out.read_text())
+    for arch, r in res.items():
+        for key in ("loss", "loss2"):
+            got, want = r[key]
+            assert abs(got - want) <= 1e-5 * abs(want), (arch, key, r)
+        for key in ("grads_err", "m_err", "v_err"):
+            assert r[key] <= 1e-4, (arch, key, r)
+        assert r["device"] == "cuda:0", (arch, r)
 
 
 def _leaves(tree, path=""):

@@ -1,6 +1,8 @@
 """The port stands alone: no JAX and no ``repro`` import anywhere in
-``src/repro_torch/`` or ``chip_smoke.py``, and its entry points run on the
-GPU by default, raising rather than falling back to the CPU."""
+``src/repro_torch/``, ``chip_smoke.py`` or the port's tools
+(``tools/sharded_topk_cards.py``, ``tools/sharded_train_cards.py``), and
+its entry points run on the GPU by default, raising rather than falling
+back to the CPU."""
 
 import ast
 import os
@@ -15,8 +17,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
+# the port's package, its chip script and its tools (not tools/flocklint.py,
+# which is the JAX package's)
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "sharded_topk_cards.py",
+    REPO / "tools" / "sharded_train_cards.py"]
 
 
 def _foreign_imports(path: Path):
