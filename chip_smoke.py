@@ -192,13 +192,29 @@ Phases (any failed check exits non-zero; nothing is caught and hidden):
      gradients and the weights after both held to the unsharded steps on
      the same card at phase 14's f32 tolerances (loss 1e-5 relative, each
      leaf 1e-4 of its largest magnitude); no kernel launched, at most 30 s;
-  17. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
+  17. sharded serving on the card: the decode kernel's range form at
+     mixtral-8x7b's width (q (4, 1, 32, 128), a 4 x 32,768-slot cache of
+     8 KV heads cut into 4 sequence shards, rows at 12,000, 9,000, 20,000
+     and 31,000 with the window of 4,096: a window across two shards,
+     shards empty for most rows): each shard's call with its rows' ranges
+     and log-sum-exp, merged, against the unsharded call and the plain
+     version at ``TOLS``, the lse within 1e-3, each shard call timed
+     beside its bound, the plain version and masked SDPA over the shard;
+     flash attention at mixtral's prefill shard on (1, 4) (q (4, 12,000,
+     8, 128), k, v 2 heads, window 4,096) against SDPA with the window's
+     mask; then mixtral-8x7b cut to 2 layers at full width (bf16) through
+     ``make_prefill_step`` over 4 prompts of 5,000 tokens into 8,192
+     slots and 8 ``make_decode_step`` calls, unsharded and on a (1, 1)
+     ``ProcessMesh`` (NCCL, the ``DTensor`` cache of ``cache_specs``):
+     logits at ``LOGITS_TOL``, tokens equal, flash launched 2 times a
+     prefill and decode 2 times a step; at most 60 s;
+  18. the script's wall time, a ``{"kernels": [...]}`` line (each kernel's
      launches summed over the paths, and by path: olmo-1b, plan, query3,
      falcon-mamba-7b, recurrentgemma-9b, granite-8b, gemma3-12b,
      qwen1.5-32b, deepseek-moe-16b, whisper-base, phi-3-vision-4.2b,
-     train, sharded, serve; flash and decode attention also with their run
-     keys at each model's shapes, block-max at the shard's), then the
-     card, then the result line.
+     train, sharded, serve, sharded_serve; flash and decode attention
+     also with their run keys at each model's shapes, block-max at the
+     shard's), then the card, then the result line.
 
 Weights are random, drawn from a fixed seed; phase 14 writes its
 checkpoints into a temporary directory and removes it.
@@ -394,14 +410,16 @@ def causal_pairs(L: int, window: int = 0) -> int:
 
 
 def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
-                causal=True, seed=SEED):
+                causal=True, seed=SEED, plain_by_row=False):
     """Flash attention on an embed batch: by default olmo-1b's (64 texts of
     128 tokens, 16 heads of 128); recurrentgemma-9b's with ``KH=1, hd=256,
     window=2048``; the dense models at their head counts (gemma3-12b's
     with 4 texts of 2048 tokens, where its window of 1024 cuts);
     whisper-base's encoder over 4 clips of 1,500 frames without the causal
     mask (``causal=False``).  SDPA is the yardstick, with an explicit mask
-    where the window cuts."""
+    where the window cuts.  ``plain_by_row``: the plain version one batch
+    row a call (mixtral's 12,000-token prefill shard, whose f32 scores
+    over 4 rows at once would not fit beside the rest)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dt = torch.bfloat16
@@ -414,6 +432,11 @@ def check_flash(dev, flush, B=64, L=128, H=16, KH=16, hd=128, window=0,
         return flash_attention(q, k, v, causal=causal, window=window)
 
     def plain():
+        if plain_by_row:
+            return torch.cat([attention_ref(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], causal=causal,
+                                            window=window)
+                              for i in range(B)])
         return attention_ref(q, k, v, causal=causal, window=window)
     out, ref = kern(), plain()
     err = max_err(out, ref)
@@ -3513,6 +3536,242 @@ def mesh_train_path(dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 17: sharded serving on one card
+# --------------------------------------------------------------------------
+MIXTRAL = "mixtral-8x7b"
+SHARD_B, SHARD_CACHE, SHARD_N = 4, 32_768, 4   # the cache, its 4 shards
+SHARD_POS, SHARD_WINDOW = (12_000, 9_000, 20_000, 31_000), 4_096
+SHARD_LSE_TOL = 1e-3             # log-sum-exp of bf16 scores, f32 sums
+PREFILL_SHARD = dict(B=4, L=12_000, H=8, KH=2, hd=128, window=4_096)
+SERVE_LAYERS, SERVE_PROMPT, SERVE_SLOTS, SERVE_STEPS = 2, 5_000, 8_192, 8
+SHARDED_SERVE_MAX_S = 60.0
+# written in PERF.md before the phase's first run on the card
+SHARDED_SERVE_PREDICTED = {"shard_call_ms": [0.015, 0.06],
+                           "phase_wall_s": [20.0, 50.0]}
+
+
+def check_decode_shards(dev, flush):
+    """Phase 17a: the decode kernel's range form at mixtral's width: q (4,
+    1, 32, 128) bf16 against a 4 x 32,768-slot cache of 8 KV heads cut
+    into 4 sequence shards of 8,192 (each a tensor of its own), rows at
+    positions 12,000, 9,000, 20,000 and 31,000 with the window of 4,096:
+    a window across shards 0 and 1, shards empty for most rows.  Each
+    shard's call with its rows' ranges and log-sum-exp, merged
+    (``sharding.merge_shards``), is held against the unsharded kernel call
+    and the plain version at ``TOLS``, each shard's and the merged lse
+    against the plain version's at ``SHARD_LSE_TOL``; each shard call's
+    device time beside its bound, its plain version and masked SDPA over
+    the shard.  Returns the row of the busiest shard."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_range)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_range_ref, valid_range)
+    from repro_torch.models.sharding import merge_shards
+    B, S, H, KH, hd, dt = SHARD_B, SHARD_CACHE, 32, 8, 128, torch.bfloat16
+    Ls = S // SHARD_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dt)
+    kc, vc = (torch.randn((B, S, KH, hd), generator=g, device=dev).to(dt)
+              for _ in range(2))
+    pos = torch.tensor(SHARD_POS, dtype=torch.int32, device=dev)
+    glo, ghi = valid_range(pos, B, SHARD_WINDOW, dev)
+    whole = decode_attention(q, kc, vc, pos, window=SHARD_WINDOW)
+    plain, plain_lse = decode_attention_range_ref(q, kc, vc, glo, ghi)
+    shards = [(kc[:, i * Ls:(i + 1) * Ls].contiguous(),
+               vc[:, i * Ls:(i + 1) * Ls].contiguous()) for i in range(SHARD_N)]
+    ranges = [valid_range(pos - i * Ls, B, SHARD_WINDOW, dev)
+              for i in range(SHARD_N)]
+    outs = [decode_attention_range(q, k, v, lo, hi, window=SHARD_WINDOW)
+            for (k, v), (lo, hi) in zip(shards, ranges)]
+    merged, merged_lse = merge_shards([o for o, _ in outs],
+                                      [lse for _, lse in outs])
+    torch.cuda.synchronize()
+    tol = TOLS[dt]
+    lse_errs = []
+    for (k, v), (lo, hi), (o, lse) in zip(shards, ranges, outs):
+        ref_o, ref_lse = decode_attention_range_ref(q, k, v, lo, hi)
+        empty = ~torch.isfinite(ref_lse)
+        check(torch.equal(empty, ~torch.isfinite(lse)),
+              "decode shards: the kernel's empty rows are not the plain "
+              "version's")
+        check(bool((o.float()[empty[:, None, :, None].expand_as(o)] == 0)
+                   .all()), "decode shards: an empty range's output is not 0")
+        lse_errs.append(max_err(lse[~empty], ref_lse[~empty])
+                        if (~empty).any() else 0.0)
+        check(torch.allclose(o.float(), ref_o.float(), atol=tol, rtol=tol),
+              f"decode shards: a shard's output ({max_err(o, ref_o)})")
+    rows = {"vs_unsharded": max_err(merged, whole),
+            "vs_plain": max_err(merged, plain),
+            "lse_vs_plain": max_err(merged_lse, plain_lse),
+            "shard_lse_errs": lse_errs,
+            "empty_shards_by_row": [
+                [int(not torch.isfinite(lse[b]).any()) for _, lse in outs]
+                for b in range(B)]}
+    ok = (torch.allclose(merged.float(), whole.float(), atol=tol, rtol=tol)
+          and torch.allclose(merged.float(), plain.float(), atol=tol,
+                             rtol=tol)
+          and rows["lse_vs_plain"] <= SHARD_LSE_TOL
+          and max(lse_errs) <= SHARD_LSE_TOL)
+    log(phase="decode_shards", card=card_line(), **rows, ok=ok)
+    check(ok, f"decode shards: merged shards against the unsharded call "
+          f"and the plain version {rows}")
+    # each shard's call timed; the busiest shard's row goes to the kernels
+    # line
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).contiguous()
+    timed = []
+    for i, ((k, v), (lo, hi)) in enumerate(zip(shards, ranges)):
+        def kern(k=k, v=v, lo=lo, hi=hi):
+            return decode_attention_range(q, k, v, lo, hi,
+                                          window=SHARD_WINDOW)
+
+        def plain_call(k=k, v=v, lo=lo, hi=hi):
+            return decode_attention_range_ref(q, k, v, lo, hi)
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        k_pos = torch.arange(Ls, device=dev)
+        valid = (k_pos[None, :] >= lo[:, None]) & (k_pos[None, :]
+                                                   <= hi[:, None])
+        mask = valid[:, None, None, :]
+
+        def lib(kt=kt, vt=vt, mask=mask):
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        k_ms, lib_ms = time_pairs_ms(kern, lib, flush)
+        n_valid = int(valid.sum())
+        nbytes = (2 * n_valid * KH * hd + 2 * q.numel()) * q.element_size() \
+            + 2 * B * 4 + B * H * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * n_valid * H * hd, dt)
+        timed.append(dict(
+            name="decode_attention", route="cuda",
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:56",
+            shape=f"q ({B}, 1, {H}, {hd}), shard {i} ({B}, {Ls}, {KH}, "
+                  f"{hd}) of a ({B}, {S}) cache, bf16, pos "
+                  f"{list(SHARD_POS)}, window {SHARD_WINDOW}, with lse",
+            max_abs_err=rows["vs_plain"], ok=ok,
+            ms=statistics.median(k_ms), ms_min=min(k_ms),
+            plain_ms=time_ms(plain_call, flush, iters=5),
+            library_ms=statistics.median(lib_ms),
+            library="F.scaled_dot_product_attention(mask over the shard, "
+                    "enable_gqa)",
+            bound_ms=b_ms, bound_by=b_by, n_valid=n_valid))
+        log(phase="decode_shard_call", shard=i, **timed[-1],
+            predicted_ms=SHARDED_SERVE_PREDICTED["shard_call_ms"])
+    return max(timed, key=lambda r: r["n_valid"])
+
+
+def _serve_steps(cfg, params, batch, policy):
+    """``make_prefill_step`` over ``batch`` into ``SERVE_SLOTS`` then
+    ``SERVE_STEPS`` greedy ``make_decode_step`` calls: (logits of each
+    step as full f32 tensors, tokens, flash and decode launches a step,
+    the prefill's wall, the cache)."""
+    from repro_torch.models import sharding as S
+    from repro_torch.serving.steps import make_decode_step, make_prefill_step
+    counts = counters()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = make_prefill_step(cfg, SERVE_SLOTS, policy)(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [{n: counts[n].launches for n in ("flash_attention",
+                                                  "decode_attention")}]
+    logits, tokens = [S.full(o["logits"])], [o["next_token"]]
+    cache, pos, tok = o["cache"], o["pos"], o["next_token"]
+    decode = make_decode_step(cfg, policy)
+    for i in range(SERVE_STEPS):
+        before = {n: fn.launches for n, fn in counts.items()}
+        o = decode(params, tok, cache, pos + i)
+        launches.append({n: counts[n].launches - before[n]
+                         for n in ("flash_attention", "decode_attention")})
+        tok = o["next_token"]
+        logits.append(S.full(o["logits"]))
+        tokens.append(tok)
+    return logits, tokens, launches, wall, cache
+
+
+def sharded_serve_steps(dev) -> dict:
+    """Phase 17b: mixtral-8x7b cut to 2 layers at full width (bf16, 3.2 B
+    parameters) through ``make_prefill_step`` over 4 prompts of 5,000
+    tokens into an 8,192-slot cache and 8 greedy ``make_decode_step``
+    calls, unsharded and then on a (1, 1) ``ProcessMesh`` of the card
+    (params by ``param_specs``, the batch by ``batch_specs``, the
+    ``DTensor`` cache by ``cache_specs``): the logits of each step held at
+    ``LOGITS_TOL``, the tokens equal, flash attention launched 2 times a
+    prefill and decode attention 2 times a decode step on the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (free_port, init_process,
+                                         make_process_mesh)
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as S
+    from repro_torch.params import init_params
+    import torch.distributed as dist
+    cfg = get_config(MIXTRAL).replace(num_layers=SERVE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    tokens = torch.randint(0, cfg.vocab_size, (4, SERVE_PROMPT),
+                           generator=g, device=dev)
+    *plain, plain_cache = _serve_steps(cfg, params, {"tokens": tokens},
+                                       L.NULL_POLICY)
+    del plain_cache
+    init_process(0, 1, free_port())
+    try:
+        mesh = make_process_mesh((1, 1), ("data", "model"))
+        policy = S.MeshPolicy(mesh, cfg, 4)
+        placed = S.put(params, mesh, S.param_specs(cfg, mesh))
+        batch = S.put({"tokens": tokens}, mesh,
+                      S.batch_specs(cfg, mesh, 4, "prefill"))
+        logits, toks, launches, wall, cache = _serve_steps(
+            cfg, placed, batch, policy)
+        placements = sorted({str(tuple(t.placements))
+                             for t in _tensors(cache)})
+        del cache, placed
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    errs = [max_err(a, b) for a, b in zip(logits, plain[0])]
+    same = [bool(torch.equal(a, b)) for a, b in zip(toks, plain[1])]
+    rec = dict(arch=MIXTRAL, layers=SERVE_LAYERS, mesh=[1, 1],
+               prompt=[4, SERVE_PROMPT], cache=SERVE_SLOTS,
+               steps=SERVE_STEPS, logits_err=errs, tokens_equal=same,
+               launches=launches, mesh_prefill_wall_s=wall,
+               plain_prefill_wall_s=plain[3], cache_placements=placements)
+    log(phase="sharded_serve_steps", **rec)
+    check(max(errs) <= LOGITS_TOL, f"sharded serve: logits {errs}")
+    check(all(same), f"sharded serve: tokens {same}")
+    check(launches[0] == {"flash_attention": SERVE_LAYERS,
+                          "decode_attention": 0},
+          f"sharded serve: prefill launches {launches[0]}")
+    check(all(n == {"flash_attention": 0, "decode_attention": SERVE_LAYERS}
+              for n in launches[1:]),
+          f"sharded serve: decode launches {launches[1:]}")
+    return {n: sum(c[n] for c in launches)
+            for n in ("flash_attention", "decode_attention")}
+
+
+def sharded_serve_path(dev):
+    """Phase 17: the decode kernel's shard form (17a), the flash kernel at
+    mixtral's prefill shard on (1, 4), and the serving steps on a (1, 1)
+    mesh of the card (17b), in at most ``SHARDED_SERVE_MAX_S``."""
+    t0 = time.perf_counter()
+    flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)  # 128 MB
+    decode_row = check_decode_shards(dev, flush)
+    flash_row = check_flash(dev, flush, seed=SEED + 42, plain_by_row=True,
+                            **PREFILL_SHARD)
+    del flush
+    free_device("sharded_serve_kernels")
+    launches = sharded_serve_steps(dev)
+    wall = time.perf_counter() - t0
+    log(phase="sharded_serve_phase", wall_s=wall,
+        predicted_phase_wall_s=SHARDED_SERVE_PREDICTED["phase_wall_s"])
+    check(decode_row["ok"] and flash_row["ok"],
+          "sharded serve: a kernel disagrees with its plain version")
+    check(wall <= SHARDED_SERVE_MAX_S, f"sharded serve: {wall:.1f} s")
+    return flash_row, decode_row, launches
+
+
 def _train_batches(cfg, dev):
     from repro_torch.training.data import DataConfig, SyntheticTokenPipeline
     data = SyntheticTokenPipeline(DataConfig(
@@ -3596,18 +3855,22 @@ def main() -> int:
     shard_row, sharded, served = sharded_path(dev)
     free_device("sharded_serve")
     mesh_train_path(dev)
+    free_device("mesh_train")
+    serve_flash, serve_decode, sharded_serve = sharded_serve_path(dev)
 
     by_path = {"olmo-1b": olmo, "plan": plan, "query3": query3,
                MAMBA: mamba, RGEMMA: rgemma, GRANITE: granite,
                GEMMA3: gemma3, QWEN: qwen, DEEPSEEK: deepseek,
                WHISPER: whisper, PHI3V: phi3v, "train": train,
-               "sharded": sharded, "serve": served}
+               "sharded": sharded, "serve": served,
+               "sharded_serve": sharded_serve}
     # the same kernel at other paths' shapes, by path
     wider = {"flash_attention": {RGEMMA: rg_flash, **{
                  arch: rows[0] for arch, rows in dense.items()},
-                 **embed_flash},
+                 **embed_flash, "sharded_serve": serve_flash},
              "decode_attention": {RGEMMA: rg_decode[0], **{
-                 arch: rows[1] for arch, rows in dense.items()}},
+                 arch: rows[1] for arch, rows in dense.items()},
+                 "sharded_serve": serve_decode},
              "topk_sim.block_max_scores": {"sharded": shard_row}}
     kernels = []
     for row in (flash, decode[0], topk, ssm, rg):

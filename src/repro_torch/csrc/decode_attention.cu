@@ -3,11 +3,18 @@
 //
 // Replaces repro/kernels/decode_attention/kernel.py: decode_attention_flat
 // (_decode_kernel), the attention of every engine decode step.  Same
-// function: the G query heads that share a KV head attend over cache
-// positions k_pos <= pos[b] (and pos[b] - k_pos < window when windowed),
-// softmax in f32, the final l floored at 1e-37, output in q's dtype.  The
-// valid set is computed here from the per-row int32 positions; no
-// (B*KH, S) mask tensor is made.
+// function: the G query heads that share a KV head attend over the cache
+// positions [lo[b], hi[b]] of their row, softmax in f32, the final l
+// floored at 1e-37, output in q's dtype.  A single card's call gives each
+// row's position as hi and no lo: the kernel takes lo = max(0, hi - window
+// + 1) (0 without a window), the Pallas kernel's valid set, so the call
+// stays one launch; a sequence shard of a cache on a mesh gets each row's
+// global range cut to the shard, lo and hi in the shard's own positions,
+// which may be empty.  The valid set is computed here from the per-row
+// int32 bounds; no (B*KH, S) mask tensor is made.  Where asked, the call
+// also writes each (row, head)'s log-sum-exp of the scaled scores in f32
+// (natural log; -inf, with o = 0, for an empty range), which the mesh's
+// merge of shards weighs them by.
 //
 // What bounds it on this card: reading the valid K and V.  At olmo-1b's
 // decode shape (4 slots x 16 KV heads of 128, bf16, positions 1900, 1024,
@@ -75,6 +82,8 @@ using namespace repro;
 
 namespace {
 
+constexpr float kLn2 = 0.6931471805599453f;
+
 // ---------------------------------------------------------------- bf16 ---
 constexpr int kMmaWarps = 4;
 constexpr int kRows = 16;      // MMA rows: the G query heads of a KV head
@@ -118,7 +127,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ kc,
                   const __nv_bfloat16* __restrict__ vc,
-                  const int* __restrict__ pos, __nv_bfloat16* __restrict__ o,
+                  const int* __restrict__ lo_b, const int* __restrict__ hi_b,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   float* __restrict__ acc_part, float* __restrict__ m_part,
                   float* __restrict__ l_part, int* __restrict__ counters,
                   int rows, int S, int KH, int G, int window,
@@ -141,7 +151,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int split = blockIdx.x / rows, row = blockIdx.x % rows;
   const int b = row / KH, kh = row % KH;
   // the G heads of this KV head are consecutive in q's and o's (B, H, hd);
-  // q (zeros past G) is fetched before pos is read
+  // q (zeros past G) is fetched before the bounds are read
   const size_t q_off = (size_t)row * G * HD;
   for (int i = tid; i < kRows * CH; i += NT) {
     const int r = i / CH, c = i % CH;
@@ -150,12 +160,15 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                q + q_off + (in ? r * HD : 0) + c * 8, in);
   }
   cp_async_commit();
-  // the row's valid positions [lo, hi] and this block's chunk [t0, t1)
-  const int p = pos[b];
+  // the row's valid positions [lo, hi] and this block's chunk [t0, t1);
+  // the wrapper keeps hi - lo below max_splits chunks (the clamp only
+  // keeps the row's counter whole)
+  const int p = hi_b[b];
   const int hi = min(p, S - 1);
-  const int lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int lo = lo_b != nullptr ? max(lo_b[b], 0)
+                                 : (window > 0 ? max(0, p - window + 1) : 0);
   const int n = hi - lo + 1;
-  const int n_split = n > 0 ? (n + chunk - 1) / chunk : 0;
+  const int n_split = n > 0 ? min((n + chunk - 1) / chunk, max_splits) : 0;
   __nv_bfloat16* orow = o + q_off;
   if (split >= max(n_split, 1)) {
     cp_async_wait<0>();
@@ -163,6 +176,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   if (n_split == 0) {               // nothing valid: the plain version's 0
     for (int i = tid; i < G * HD; i += NT) orow[i] = __float2bfloat16(0.f);
+    if (lse != nullptr && tid < G) lse[(size_t)row * G + tid] = -INFINITY;
     cp_async_wait<0>();
     return;
   }
@@ -357,6 +371,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                              2 * t) =
               __floats2bfloat162_rn(acc[nn][2 * r] * inv,
                                     acc[nn][2 * r + 1] * inv);
+        // m and l are in log2 units, the same in every warp
+        if (lse != nullptr && warp == 0 && t == 0)
+          lse[(size_t)row * G + rr] = (m[r] + log2f(l[r])) * kLn2;
       } else {
         if (warp == 0 && t == 0) {
           m_part[part * G + rr] = m[r];
@@ -461,15 +478,18 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       out[1] = __floats2bfloat162_rn(A[it].z * inv, A[it].w * inv);
     }
   }
+  if (lse != nullptr && tid < G)
+    lse[(size_t)row * G + tid] = (run_m[tid] + log2f(run_l[tid])) * kLn2;
   if (tid == 0) counters[row] = 0;   // ready for the next call
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
-                       const int* pos, void* o, float* acc_part,
-                       float* m_part, float* l_part, int* counters, int B,
-                       int S, int KH, int G, int window, float scale,
-                       int chunk, cudaStream_t stream) {
+                       const int* lo, const int* hi, void* o, float* lse,
+                       float* acc_part, float* m_part, float* l_part,
+                       int* counters, int B, int S, int KH, int G,
+                       int max_len, int window, float scale, int chunk,
+                       cudaStream_t stream) {
   using T = DecTile<HD>;
   // the ring needs no more stages than a chunk has tiles
   const int smem = T::bytes(min(T::NS, chunk / kBN));
@@ -477,16 +497,16 @@ cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
     const cudaError_t err = set_smem(decode_mma_kernel<HD>, T::bytes(T::NS));
     if (err != cudaSuccess) return err;
   }
-  const int n_max = window > 0 ? min(S, window) : S;
+  const int n_max = max_len > 0 ? min(S, max_len) : S;
   const int max_splits = (n_max + chunk - 1) / chunk;
   const int rows = B * KH;
   decode_mma_kernel<HD><<<rows * max_splits, kMmaWarps * 32, smem,
                           stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), pos,
-      static_cast<__nv_bfloat16*>(o), acc_part, m_part, l_part, counters,
-      rows, S, KH, G, window, scale * 1.4426950408889634f, chunk,
+      static_cast<const __nv_bfloat16*>(vc), lo, hi,
+      static_cast<__nv_bfloat16*>(o), lse, acc_part, m_part, l_part,
+      counters, rows, S, KH, G, window, scale * 1.4426950408889634f, chunk,
       max_splits);
   return cudaGetLastError();
 }
@@ -501,7 +521,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 decode_partial_kernel(const float* __restrict__ q,
                       const float* __restrict__ kc,
                       const float* __restrict__ vc,
-                      const int* __restrict__ pos,
+                      const int* __restrict__ lo_b,
+                      const int* __restrict__ hi_b,
                       float* __restrict__ m_part, float* __restrict__ l_part,
                       float* __restrict__ acc_part, int S, int KH,
                       int n_sub, int window, float scale) {
@@ -519,9 +540,10 @@ decode_partial_kernel(const float* __restrict__ q,
   __syncthreads();
 
   // valid positions of this row: [lo, hi]; this block's chunk [t0, t1)
-  const int p = pos[b];
+  const int p = hi_b[b];
   const int hi = min(p, S - 1);
-  const int lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int lo = lo_b != nullptr ? max(lo_b[b], 0)
+                                 : (window > 0 ? max(0, p - window + 1) : 0);
   const int n = max(0, hi - lo + 1);
   const int chunk = (n + n_split - 1) / n_split;
   const int t0 = lo + split * chunk;
@@ -602,11 +624,13 @@ decode_partial_kernel(const float* __restrict__ q,
   }
 }
 
-// One block per row; thread (g, d) merges the row's P partial triples.
+// One block per row; thread (g, d) merges the row's P partial triples
+// (and, with lse, thread (g, 0) writes the head's log-sum-exp).
 __global__ void decode_combine_kernel(const float* __restrict__ m_part,
                                       const float* __restrict__ l_part,
                                       const float* __restrict__ acc_part,
-                                      float* __restrict__ o, int P, int G,
+                                      float* __restrict__ o,
+                                      float* __restrict__ lse, int P, int G,
                                       int HD) {
   const int row = blockIdx.x;
   for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
@@ -621,41 +645,44 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_part,
       A += w * acc_part[((base + p) * G + g) * HD + d];
     }
     o[((size_t)row * G + g) * HD + d] = A / fmaxf(L, 1e-37f);
+    if (lse != nullptr && d == 0)
+      lse[(size_t)row * G + g] = L > 0.f ? M + logf(L) : -INFINITY;
   }
 }
 
 template <int HD, int G>
 cudaError_t launch_f32(const void* q, const void* kc, const void* vc,
-                       const int* pos, void* o, float* m_part, float* l_part,
-                       float* acc_part, int B, int S, int KH, int n_sub,
-                       int window, float scale, int n_split,
-                       cudaStream_t stream) {
+                       const int* lo, const int* hi, void* o, float* lse,
+                       float* m_part, float* l_part, float* acc_part, int B,
+                       int S, int KH, int n_sub, int window, float scale,
+                       int n_split, cudaStream_t stream) {
   const int rows = B * KH * n_sub;
   const dim3 grid(n_split, rows);
   decode_partial_kernel<HD, G><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), pos, m_part, l_part, acc_part, S, KH,
+      static_cast<const float*>(vc), lo, hi, m_part, l_part, acc_part, S, KH,
       n_sub, window, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = min(1024, ((G * HD + 31) / 32) * 32);
   decode_combine_kernel<<<rows, threads, 0, stream>>>(
-      m_part, l_part, acc_part, static_cast<float*>(o), n_split * kWarps, G,
-      HD);
+      m_part, l_part, acc_part, static_cast<float*>(o), lse,
+      n_split * kWarps, G, HD);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t dispatch_f32(int G, const void* q, const void* kc,
-                         const void* vc, const int* pos, void* o,
-                         float* m_part, float* l_part, float* acc_part,
-                         int B, int S, int KH, int n_sub, int window,
-                         float scale, int n_split, cudaStream_t stream) {
+                         const void* vc, const int* lo, const int* hi,
+                         void* o, float* lse, float* m_part, float* l_part,
+                         float* acc_part, int B, int S, int KH, int n_sub,
+                         int window, float scale, int n_split,
+                         cudaStream_t stream) {
   switch (G) {
-    case 1: return launch_f32<HD, 1>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
-    case 2: return launch_f32<HD, 2>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
-    case 4: return launch_f32<HD, 4>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
-    case 8: return launch_f32<HD, 8>(q, kc, vc, pos, o, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 1: return launch_f32<HD, 1>(q, kc, vc, lo, hi, o, lse, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 2: return launch_f32<HD, 2>(q, kc, vc, lo, hi, o, lse, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 4: return launch_f32<HD, 4>(q, kc, vc, lo, hi, o, lse, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
+    case 8: return launch_f32<HD, 8>(q, kc, vc, lo, hi, o, lse, m_part, l_part, acc_part, B, S, KH, n_sub, window, scale, n_split, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -686,35 +713,41 @@ REPRO_EXPORT int decode_attention_info(int hd, int dtype, int* out) {
   }
 }
 
-// bf16.  q, o: (B, 1, H, hd); k_cache, v_cache: (B, S, KH, hd); pos: (B,)
-// int32; chunk: keys per block, a multiple of 64; acc_part: (B*KH,
-// max_splits, H/KH, hd) f32 and m_part, l_part: (B*KH, max_splits, H/KH)
-// f32, max_splits = ceil(min(S, window or S) / chunk); counters: B*KH
-// int32, zero, and zero again when the call's work is done.
+// bf16.  q, o: (B, 1, H, hd); k_cache, v_cache: (B, S, KH, hd); lo, hi:
+// (B,) int32, row b's valid keys [lo[b], hi[b]], with hi - lo < max_len
+// (0: S); lo null: lo[b] = max(0, hi[b] - window + 1), or 0 where window
+// is 0; lse: (B, H) f32, or null; chunk: keys per block, a multiple of
+// 64; acc_part: (B*KH, max_splits, H/KH, hd) f32 and m_part, l_part:
+// (B*KH, max_splits, H/KH) f32, max_splits = ceil(min(S, max_len or S) /
+// chunk); counters: B*KH int32, zero, and zero again when the call's work
+// is done.
 REPRO_EXPORT int decode_attention_mma(const void* q, const void* kc,
-                                      const void* vc, const void* pos,
-                                      void* o, void* acc_part, void* m_part,
+                                      const void* vc, const void* lo,
+                                      const void* hi, void* o, void* lse,
+                                      void* acc_part, void* m_part,
                                       void* l_part, void* counters, int B,
                                       int S, int H, int KH, int hd,
-                                      int window, float scale, int chunk,
-                                      void* stream) {
+                                      int max_len, int window, float scale,
+                                      int chunk, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || H / KH > kRows
       || chunk <= 0 || chunk % kBN != 0)
     return cudaErrorInvalidValue;
   const int G = H / KH;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
+  const int* lb = static_cast<const int*>(lo);
+  const int* hb = static_cast<const int*>(hi);
+  float* ls = static_cast<float*>(lse);
   float* ap = static_cast<float*>(acc_part);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   int* cnt = static_cast<int*>(counters);
   switch (hd) {
-    case 16: return launch_mma<16>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
-    case 32: return launch_mma<32>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
-    case 64: return launch_mma<64>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
-    case 96: return launch_mma<96>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
-    case 128: return launch_mma<128>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
-    case 256: return launch_mma<256>(q, kc, vc, p, o, ap, mp, lp, cnt, B, S, KH, G, window, scale, chunk, s);
+    case 16: return launch_mma<16>(q, kc, vc, lb, hb, o, ls, ap, mp, lp, cnt, B, S, KH, G, max_len, window, scale, chunk, s);
+    case 32: return launch_mma<32>(q, kc, vc, lb, hb, o, ls, ap, mp, lp, cnt, B, S, KH, G, max_len, window, scale, chunk, s);
+    case 64: return launch_mma<64>(q, kc, vc, lb, hb, o, ls, ap, mp, lp, cnt, B, S, KH, G, max_len, window, scale, chunk, s);
+    case 96: return launch_mma<96>(q, kc, vc, lb, hb, o, ls, ap, mp, lp, cnt, B, S, KH, G, max_len, window, scale, chunk, s);
+    case 128: return launch_mma<128>(q, kc, vc, lb, hb, o, ls, ap, mp, lp, cnt, B, S, KH, G, max_len, window, scale, chunk, s);
+    case 256: return launch_mma<256>(q, kc, vc, lb, hb, o, ls, ap, mp, lp, cnt, B, S, KH, G, max_len, window, scale, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -723,28 +756,31 @@ REPRO_EXPORT int decode_attention_mma(const void* q, const void* kc,
 // heads of a KV head; m_part, l_part: (B*H/group_block, n_split*4,
 // group_block) f32; acc_part: (..., group_block, hd) f32.
 REPRO_EXPORT int decode_attention_f32(const void* q, const void* kc,
-                                      const void* vc, const void* pos,
-                                      void* o, void* m_part, void* l_part,
+                                      const void* vc, const void* lo,
+                                      const void* hi, void* o, void* lse,
+                                      void* m_part, void* l_part,
                                       void* acc_part, int B, int S, int H,
-                                      int KH, int hd, int window,
-                                      float scale, int n_split,
-                                      int group_block, void* stream) {
+                                      int KH, int hd, int window, float scale,
+                                      int n_split, int group_block,
+                                      void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || n_split <= 0
       || group_block <= 0 || (H / KH) % group_block != 0)
     return cudaErrorInvalidValue;
   const int n_sub = H / KH / group_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
+  const int* lb = static_cast<const int*>(lo);
+  const int* hb = static_cast<const int*>(hi);
+  float* ls = static_cast<float*>(lse);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   float* ap = static_cast<float*>(acc_part);
   switch (hd) {
-    case 16: return dispatch_f32<16>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
-    case 32: return dispatch_f32<32>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
-    case 64: return dispatch_f32<64>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
-    case 96: return dispatch_f32<96>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
-    case 128: return dispatch_f32<128>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
-    case 256: return dispatch_f32<256>(group_block, q, kc, vc, p, o, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 16: return dispatch_f32<16>(group_block, q, kc, vc, lb, hb, o, ls, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 32: return dispatch_f32<32>(group_block, q, kc, vc, lb, hb, o, ls, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 64: return dispatch_f32<64>(group_block, q, kc, vc, lb, hb, o, ls, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 96: return dispatch_f32<96>(group_block, q, kc, vc, lb, hb, o, ls, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 128: return dispatch_f32<128>(group_block, q, kc, vc, lb, hb, o, ls, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
+    case 256: return dispatch_f32<256>(group_block, q, kc, vc, lb, hb, o, ls, mp, lp, ap, B, S, KH, n_sub, window, scale, n_split, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,15 @@ Counterpart of ``repro/kernels/decode_attention/ops.py``, in the model's
 layout: q (B, 1, H, hd), caches (B, S, KH, hd), per-row positions.  A
 CUDA tensor goes through the hand-written Hopper kernel (or the call
 raises); a CPU tensor goes through the plain version in ``ref.py``.
-``decode_attention.launches`` counts calls that launched the kernel (one
-launch in bf16; the f32 kernel adds a merge launch).
+``decode_attention`` takes each row's position and the window, as the
+Pallas kernel does: the kernel takes each row's valid range as ``[max(0,
+pos - window + 1), pos]``, forming the lower end itself (in the wrapper it
+would cost two elementwise launches a call); ``decode_attention_range``
+takes the ranges themselves (a sequence shard's, in its own positions,
+possibly empty) and also returns each head's log-sum-exp, by which the
+mesh's decode merges its shards (``models/sharding.py``).
+``decode_attention.launches`` counts calls of either that launched the
+kernel (one launch in bf16; the f32 kernel adds a merge launch).
 
 On the card the call raises where autograd would need a gradient
 (``_build.refuse_grad``): the kernel has no backward, as the Pallas
@@ -21,7 +28,7 @@ import math
 import torch
 
 from .. import _build
-from .ref import decode_attention_ref
+from .ref import decode_attention_range_ref, valid_range
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
@@ -32,8 +39,8 @@ F32_WARPS = 4            # partial (m, l, acc) triples per f32 split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decode_attention_mma": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P),
-    "decode_attention_f32": (_P,) * 8 + (_I,) * 6 + (_F, _I, _I, _P),
+    "decode_attention_mma": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P),
+    "decode_attention_f32": (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _P),
     "decode_attention_info": (_I, _I, ctypes.POINTER(_I))}
 INFO_KEYS = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
 # per (device, stream): the bf16 kernel's per-row counters, zero between
@@ -101,9 +108,36 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
     """q: (B, 1, H, hd); caches: (B, S, KH, hd); pos: int or (B,) int —
     the current token's position (its K/V already written).
     Returns (B, 1, H, hd) in q's dtype."""
+    hi = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                            device=q.device), (q.shape[0],))
+    return _decode(q, k_cache, v_cache, None, hi.contiguous(), window,
+                   window, scale, False)[0]
+
+
+def decode_attention_range(q, k_cache, v_cache, lo, hi, *, window: int = 0,
+                           scale: float | None = None):
+    """q: (B, 1, H, hd); caches: (B, S, KH, hd); lo, hi: (B,) int32, row
+    b's valid keys [lo[b], hi[b]] (clipped to the cache; empty when hi <
+    lo), and with ``window`` > 0 no more than the range's last ``window``
+    keys: lo is raised to ``hi - window + 1`` here, so that every range
+    fits the grid, which is sized for min(S, window) keys a row (S
+    without a window).  Returns (o (B, 1, H, hd) in q's dtype, lse (B, H)
+    f32: each head's log-sum-exp of its scaled scores, -inf with o = 0
+    where the range is empty)."""
+    if window > 0:
+        lo = torch.maximum(lo, hi - (window - 1))
+    return _decode(q, k_cache, v_cache, lo, hi, window, 0, scale, True)
+
+
+def _decode(q, k_cache, v_cache, lo, hi, max_len, window, scale, with_lse):
+    """The call: rows' ranges [lo, hi], or with lo None [max(0, hi - window
+    + 1), hi].  ``max_len`` (0: S) sizes the bf16 grid and bounds every
+    range: both forms pass their window, which bounds their ranges."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, pos,
-                                    window=window, scale=scale)
+        if lo is None:
+            lo, hi = valid_range(hi, q.shape[0], window, q.device)
+        return decode_attention_range_ref(q, k_cache, v_cache, lo, hi,
+                                          scale=scale)
     _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     _build.require_cuda("decode_attention q", q, tuple(_DTYPES), 4)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -118,19 +152,25 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
             f"decode_attention: unsupported shapes q{tuple(q.shape)} "
             f"cache{tuple(k_cache.shape)} (head dim in {HEAD_DIMS}, "
             f"H/KH in {GROUPS}, one device)")
-    pos_b = torch.broadcast_to(
-        torch.as_tensor(pos, dtype=torch.int32, device=q.device),
-        (B,)).contiguous()
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (B,) or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"decode_attention: {name} must be a contiguous "
+                             f"int32 ({B},) tensor on {q.device}")
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if B == 0:
-        return o
+        return o, lse
+    lse_ptr = lse.data_ptr() if with_lse else None
+    lo_ptr = None if lo is None else lo.data_ptr()
     scale = scale if scale is not None else hd ** -0.5
     lib = _build.load(_SIGNATURES)
     stream = _build.stream_ptr(q.device)
     G = H // KH
     if q.dtype == torch.bfloat16:
         rows = B * KH
-        n_max = min(S, window) if window > 0 else S
+        n_max = min(S, max_len) if max_len > 0 else S
         chunk = chunk_keys(_grid_blocks(q.device, hd), rows, n_max, G)
         parts = rows * -(-n_max // chunk) * G     # (row, split, head)
         scratch = torch.empty(parts * (hd + 2), dtype=torch.float32,
@@ -139,10 +179,10 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
         _build.launch(
             lib, "decode_attention_mma", "decode_attention", q.device,
             stream, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos_b.data_ptr(), o.data_ptr(), acc_part.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(),
+            lo_ptr, hi.data_ptr(), o.data_ptr(), lse_ptr,
+            acc_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
             _row_counters(q.device, stream, rows).data_ptr(), B, S, H, KH,
-            hd, int(window), float(scale), chunk)
+            hd, int(max_len), int(window), float(scale), chunk)
     else:
         gb = min(G, F32_GROUP_BLOCK)
         rows = B * H // gb
@@ -155,11 +195,11 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
         _build.launch(
             lib, "decode_attention_f32", "decode_attention", q.device,
             stream, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos_b.data_ptr(), o.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), acc_part.data_ptr(), B, S, H, KH, hd,
-            int(window), float(scale), split, gb)
+            lo_ptr, hi.data_ptr(), o.data_ptr(), lse_ptr,
+            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), B, S,
+            H, KH, hd, int(window), float(scale), split, gb)
     decode_attention.launches += 1
-    return o
+    return o, lse
 
 
 decode_attention.launches = 0

@@ -42,7 +42,9 @@ from __future__ import annotations
 import math
 import os
 import socket
+import sys
 import threading
+import traceback
 from typing import Optional, Sequence
 
 import numpy as np
@@ -203,15 +205,24 @@ def _process_main(rank, fn, world, port, device, args):
     dev = init_process(rank, world, port, device)
     try:
         fn(rank, dev, *args)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # the other ranks may be waiting in a collective for this one, and
+        # tearing the group down (NCCL) would wait with them: report and
+        # leave at once, so that run_processes stops the rest
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 def run_processes(fn, world: int, device=None, args=()):
     """Run ``fn(rank, device, *args)`` in ``world`` processes on this host,
     each joined to one process group (``init_process``), and wait for all;
     raises if any fails.  The processes are spawned (a fresh interpreter
-    each)."""
+    each).  A process whose ``fn`` raises prints the traceback and exits at
+    once, without tearing down its group, and the others are then
+    stopped: ranks left waiting in a collective for it cannot hang the
+    run."""
     import torch.multiprocessing as mp
     os.environ.setdefault("OMP_NUM_THREADS", "1")
     mp.spawn(_process_main, args=(fn, world, free_port(), device, args),

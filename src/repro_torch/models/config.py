@@ -30,6 +30,10 @@ so "replicated" and "auto" run alike.  So are ``max_seq``, which no code of
 the JAX package reads, and ``train_accum_steps``, which only its dry run
 reads (the trainer takes ``HParams.accum_steps``).
 
+The shape cells (``ShapeCell``, ``SHAPES``, ``LONG_CONTEXT_OK``,
+``cell_is_supported``) are the JAX package's, line for line; the sharded
+serving tool takes its cache length from ``SHAPES["decode_32k"]``.
+
 The audio frontend is the ``frames`` input (B, encoder_seq, d_model) of
 an encoder-decoder: the JAX package stubs the conv stem the same way.
 The vision frontend is the ``patches`` input (B, P, d_model), P =
@@ -236,6 +240,35 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+    name: str                         # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+# archs for which long_500k is runnable (sub-quadratic / windowed); the
+# rest SKIP that cell per DESIGN.md §4.
+LONG_CONTEXT_OK = {
+    "falcon-mamba-7b", "recurrentgemma-9b", "mixtral-8x7b", "gemma3-12b",
+}
+
+
+def cell_is_supported(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True
 
 
 def check_supported(cfg: ModelConfig):

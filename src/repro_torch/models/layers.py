@@ -44,7 +44,10 @@ one device.  Under a ``sharding.MeshPolicy`` the tensors are ``DTensor``s
 and the few ops DTensor cannot run as they are (rope's angles, the plain
 attention, the causal conv, the scans, the MoE dispatch) run on the local
 shards through ``sharding``'s ``*_on_shards``; the plain tensors of one
-device never take those branches.
+device never take those branches.  On the serving paths the cache's
+sequence is sharded: decode and chunked prefill write it shard-locally
+and attend over each shard, merged by log-sum-exp
+(``sharding.decode_on_shards``, ``sharding.attend_on_sequence``).
 """
 
 from __future__ import annotations
@@ -166,15 +169,19 @@ def sinusoid_pos(seq: int, d: int, offset=0, dtype=torch.bfloat16,
 # --------------------------------------------------------------------------
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       q_offset=0, kv_valid_len=None, block_k: int = 512,
-                      scale: float | None = None):
+                      scale: float | None = None, k_offset: int = 0,
+                      return_lse: bool = False):
     """Online-softmax attention over KV blocks of ``block_k``.
 
     q: (B, Sq, H, hd);  k, v: (B, Sk, KH, hd) with H % KH == 0.
     ``q_offset``: absolute position of q[0], scalar or per row (B,).
+    ``k_offset``: absolute position of k[0] (a sequence shard's start).
     ``window`` > 0: sliding-window mask  q_pos - k_pos < window.
-    ``kv_valid_len``: mask out k positions >= this.
-    Returns (B, Sq, H, hd) in q.dtype.  The last block is not padded: a
-    row with at least one visible key gets the JAX package's result.
+    ``kv_valid_len``: mask out k positions >= this (counted from k[0]).
+    Returns (B, Sq, H, hd) in q.dtype, and with ``return_lse`` also the
+    log-sum-exp (B, Sq, H) f32 of each query's scaled scores, -inf for a
+    query with no visible key.  The last block is not padded: a row with
+    at least one visible key gets the JAX package's result.
     """
     B, Sq, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -195,6 +202,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         s = torch.einsum("bqkgh,btkh->bkgqt", qg, kblk)
         k_pos = start + torch.arange(kblk.shape[1], device=q.device)
         mask = (k_pos[None, None, :] < valid_limit).expand(B, Sq, -1)
+        if k_offset:
+            k_pos = k_pos + k_offset
         if causal:
             mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
         if window:
@@ -208,7 +217,14 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                                                    vblk)
         m = m_new
     out = acc / l.clamp_min(1e-37)[..., None]                # (B,KH,G,Sq,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    # a query with no visible key kept m at NEG (its masked scores summed
+    # as ones): no mass
+    lse = torch.where(m > NEG / 2, m + torch.log(l),
+                      torch.full((), float("-inf"), device=q.device))
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
 
 
 def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -388,7 +404,8 @@ def self_attention_train(cfg: ModelConfig, p, x, kind: str, positions,
     q, k, v = attn_qkv(cfg, p, x, positions, kind, policy)
     window = _window(cfg, kind)
     if route == "kernels":
-        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        o = _attend(lambda q, k, v: flash_ops.flash_attention(
+            q, k, v, causal=causal, window=window), q, k, v)
     elif cfg.attn_impl == "blocked":
         o = _attend(lambda q, k, v: blocked_attention(
             q, k, v, causal=causal, window=window, block_q=cfg.attn_block_k,
@@ -446,11 +463,20 @@ def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos,
     (y, cache).
 
     The new K/V are written in place at ``cache[b, pos[b]]`` (on the int8
-    cache quantized, values and scales).  (The JAX package rebuilds the
-    whole cache with a masked ``where`` so the write stays local to a
-    sequence-sharded cache; the values written are the same and every
-    other row is left as it was.)  On the int8 cache the decode kernel
-    reads the cache dequantized to the compute dtype.
+    cache quantized, values and scales); every other position is left as
+    it was.  (The JAX package rebuilds the whole cache with a masked
+    ``where``, which keeps its write local to a sequence-sharded cache.)
+    On the int8 cache the decode kernel reads the cache dequantized to the
+    compute dtype.
+
+    Under a mesh the cache leaves are ``DTensor``s with the sequence
+    sharded (``sharding.cache_specs``): the token's K/V go to the rank
+    whose shard holds ``pos[b]``, written in place there and nowhere else
+    (``sharding.cache_write_on_shards``), and each rank runs the decode
+    kernel with every query head over its shard's part of the row's range
+    (its log-sum-exp beside), the shards merged over the sequence's mesh
+    axes (``sharding.decode_on_shards``): the cross-card flash-decode the
+    JAX package's layout stands for.  No cache leaf is gathered or copied.
     """
     B = x.shape[0]
     pos_b = positions_vector(pos, B, x.device)
@@ -458,12 +484,20 @@ def self_attention_decode(cfg: ModelConfig, p, x, kind: str, cache, pos,
     rows = torch.arange(B, device=x.device)
     at = pos_b.long()
     for name, t in cache_entries(cfg, k, v).items():
-        cache[name][rows, at] = t[:, 0].to(cache[name].dtype)
+        if isinstance(cache[name], DTensor):
+            sharding.cache_write_on_shards(cache[name], t, pos_b[:, None])
+        else:
+            cache[name][rows, at] = t[:, 0].to(cache[name].dtype)
         cache[name] = policy(cache[name], "kv_cache")
     k_use, v_use = cache_kv(cfg, cache)
     q = policy(q, "act_q_decode")
-    o = decode_ops.decode_attention(q, k_use, v_use, pos_b,
-                                    window=_window(cfg, kind))
+    window = _window(cfg, kind)
+    if isinstance(k_use, DTensor):
+        o = sharding.decode_on_shards(decode_ops.decode_attention_range, q,
+                                      k_use, v_use, pos_b, window)
+    else:
+        o = decode_ops.decode_attention(q, k_use, v_use, pos_b,
+                                        window=window)
     return attn_out(p, o, policy), cache
 
 
@@ -473,7 +507,12 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off,
     cache.  x: (B, C, d); off: int, or (B,) — tokens already cached per
     row.  The chunk's K/V are written in place at ``[off, off + C)``
     (positions past the cache are dropped, as in the JAX package, whose
-    gather-select rewrites the whole cache instead).
+    gather-select rewrites the whole cache instead).  Under a mesh each
+    rank writes the chunk's positions its sequence shard holds, in place
+    (a chunk may cross a shard's edge; ``sharding.cache_write_on_shards``),
+    and the chunk's queries, every head, attend over each shard with the
+    plain chunked attention and its log-sum-exp, the shards merged
+    (``sharding.attend_on_sequence``); no cache leaf is gathered or copied.
 
     On the int8 cache the chunk's K/V are quantized as the decode step
     quantizes them, values and scales written, and the chunk attends over
@@ -487,7 +526,11 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off,
     q, k, v = attn_qkv(cfg, p, x, positions, kind, policy)
     Smax = cache["k"].shape[1]
     entries = cache_entries(cfg, k, v)
-    if isinstance(off, numbers.Integral):
+    window = _window(cfg, kind)
+    if isinstance(cache["k"], DTensor):
+        for name, t in entries.items():
+            sharding.cache_write_on_shards(cache[name], t, positions)
+    elif isinstance(off, numbers.Integral):
         n = max(0, min(C, Smax - int(off)))
         for name, t in entries.items():
             cache[name][:, off:off + n] = t[:, :n].to(cache[name].dtype)
@@ -501,9 +544,15 @@ def self_attention_extend(cfg: ModelConfig, p, x, kind: str, cache, off,
     cache["v"] = policy(cache["v"], "kv_cache")
     k_all, v_all = cache_kv(cfg, cache)
     q = policy(q, "act_q")
-    o = chunked_attention(q, k_all, v_all, causal=True,
-                          window=_window(cfg, kind), q_offset=off_b,
-                          block_k=cfg.attn_block_k)
+    if isinstance(k_all, DTensor):
+        o = sharding.attend_on_sequence(
+            lambda ql, kl, vl, q0, k0: chunked_attention(
+                ql, kl, vl, causal=True, window=window, q_offset=q0,
+                k_offset=k0, block_k=cfg.attn_block_k, return_lse=True),
+            q, k_all, v_all, off_b)
+    else:
+        o = chunked_attention(q, k_all, v_all, causal=True, window=window,
+                              q_offset=off_b, block_k=cfg.attn_block_k)
     o = policy(o, "act_q")
     return attn_out(p, o, policy), cache
 

@@ -47,7 +47,11 @@ Every entry point takes a ``policy`` (``layers.NULL_POLICY`` by default,
 ``sharding.MeshPolicy`` over a mesh), threaded to the layers and applied
 at the JAX package's call sites.  Under a mesh the params and the batch
 are ``DTensor``s; ``loss_fn`` and ``forward_train`` on the plain route
-run there (``training/train_step.py``).
+run there (``training/train_step.py``), and so do ``prefill``,
+``prefill_chunk`` and ``decode_step`` of the attention-only decoders on
+the compute-dtype cache, whose leaves are ``DTensor``s placed by
+``sharding.cache_specs`` (``init_cache(..., mesh=)``); the other caches
+raise there (``sharding.refuse_serving``).
 """
 
 from __future__ import annotations
@@ -113,9 +117,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
                                            positions, policy, causal=causal,
                                            route=route)
         if mode == "prefill":
-            pad = (0, 0, 0, 0, 0, cache_len - k.shape[1])
-            new_attn = {name: policy(F.pad(t, pad), "kv_cache") for name, t
-                        in L.cache_entries(cfg, k, v).items()}
+            new_attn = {name: _prefill_cache(t, cache_len, policy)
+                        for name, t in L.cache_entries(cfg, k, v).items()}
     x = x + y
     if "xattn" in p:
         hx = L.norm_apply(cfg, p.get("ln_x", {}), x)
@@ -139,6 +142,19 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, mode: str, positions,
     if mode in ("prefill", "decode", "extend"):
         new_cache["attn"] = new_attn
     return policy(x, "act"), new_cache, aux
+
+
+def _prefill_cache(t, cache_len: int, policy):
+    """A prompt's keys or values (B, S, KH, hd) padded to the cache's
+    ``cache_len`` positions; under a mesh placed by the policy's
+    "kv_cache" spec, the sequence sharded, each rank keeping the prompt
+    positions of its shard (``sharding.cache_from_prefill``)."""
+    if isinstance(t, DTensor):
+        return sharding.cache_from_prefill(t, policy.mesh,
+                                           policy.specs["kv_cache"],
+                                           cache_len)
+    return policy(F.pad(t, (0, 0, 0, 0, 0, cache_len - t.shape[1])),
+                  "kv_cache")
 
 
 def _apply_mamba(cfg: ModelConfig, p, x, *, mode: str, cache, policy, route):
@@ -376,9 +392,19 @@ def loss_fn(cfg: ModelConfig, params, batch, policy=L.NULL_POLICY):
     return total, {"loss": nll, "aux_loss": aux, "tokens": mask.sum()}
 
 
-def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None):
-    """Zero cache matching the stage structure."""
+def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None,
+               mesh=None):
+    """Zero cache matching the stage structure.  Over ``mesh`` (a
+    ``ProcessMesh``) each leaf is a ``DTensor`` placed by
+    ``sharding.cache_specs``, of which each rank makes only its shard."""
     check_supported(cfg)
+    if mesh is not None:
+        sharding.refuse_serving(cfg)
+        return sharding.map_specs(
+            lambda t, spec: sharding.zeros(t.shape, t.dtype, mesh, spec,
+                                           device),
+            init_cache(cfg, B, cache_len, "meta"),
+            sharding.cache_specs(cfg, mesh, B))
     dt = cfg.compute_torch_dtype
     hd, KH = cfg.resolved_head_dim, cfg.padded_num_kv_heads
 
@@ -422,10 +448,18 @@ def reset_recurrent_rows(cfg: ModelConfig, cache, row: int):
                     t[:, row].zero_()
 
 
+def _check_mesh(cfg: ModelConfig, policy):
+    if isinstance(policy, sharding.MeshPolicy):
+        sharding.refuse_serving(cfg)
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, batch, cache_len: int,
             policy=L.NULL_POLICY):
-    """Process the prompt; returns (last-token logits, cache, next_pos)."""
+    """Process the prompt; returns (last-token logits, cache, next_pos).
+    Under a mesh the cache's leaves are placed by ``sharding.cache_specs``
+    (the sequence sharded)."""
+    _check_mesh(cfg, policy)
     enc_out = _encoder_output(cfg, params, batch, policy=policy)
     x, positions = _assemble_input(cfg, params, batch, policy)
     x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),
@@ -444,6 +478,7 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, cache, off,
     (B, C) int; off: int or (B,) tokens already cached.  Returns (logits
     (B, C, V), cache) — the cache given, written in place."""
     check_supported(cfg)
+    _check_mesh(cfg, policy)
     x = _embed_tokens(cfg, params, tokens, policy)
     x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),
                                x, mode="extend", positions=None, pos=off,
@@ -481,6 +516,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos,
     this token.  Returns (logits (B, 1, V), cache) — the cache given,
     written in place."""
     check_supported(cfg)
+    _check_mesh(cfg, policy)
     x = _embed_tokens(cfg, params, tokens, policy)
     pos = L.positions_vector(pos, x.shape[0], x.device)
     x, caches, _ = _run_stages(cfg, params["stages"], list(cfg.stages()),

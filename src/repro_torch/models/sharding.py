@@ -57,8 +57,28 @@ gives it each output's placements and each input's gradient placements):
     to ``Replicate()`` over "model" first (``unshard``).
 No op is redistributed to ``Replicate()`` only to get round DTensor,
 except the logits above.  ``torch.utils.checkpoint`` (``cfg.remat``) runs
-on DTensors as it is.  The serving paths (decode, chunked prefill) carry
-the policy hooks but do not run on a mesh yet.
+on DTensors as it is.
+
+The serving steps (``serving/steps.py``) run on a mesh over the
+sequence-sharded KV cache of ``cache_specs`` (the sequence over "model",
+over ("data", "model") where the batch does not divide "data"), the
+flash-decode layout of the reference, with these escapes:
+  * the flash kernel of a full-sequence step on the local rows and heads
+    (``attention_on_shards``, as the plain attention);
+  * the prefill's keys and values, gathered over their heads once, each
+    rank keeping its sequence shard (``cache_from_prefill``);
+  * the decode and chunked-prefill writes (``cache_write_on_shards``): the
+    new tokens' K/V redistributed to the cache's rows, each rank writing
+    in place the positions its shard holds and no others;
+  * the attention of a decode step or a chunk over the cache
+    (``decode_on_shards``, ``attend_on_sequence``): each rank, with every
+    query head, attends over its shard (the decode kernel's range form,
+    or the plain chunked attention) and returns the log-sum-exp beside
+    its output; the shards' (o, lse) are all-gathered over the sequence's
+    mesh axes and merged (``merge_shards``).  No step gathers or copies
+    the cache.
+The Mamba and RG-LRU decode states, the encoder-decoder's cross cache
+and the int8 cache do not run on a mesh yet (``refuse_serving``).
 """
 
 from __future__ import annotations
@@ -675,8 +695,10 @@ def moe_on_shards(route_fn, experts_fn, x, router, weights):
         x = x.redistribute(dm, rows)
     router = router.redistribute(dm, [Replicate()] * dm.ndim)
     keys = ("probs", "counts", "table", "wtab", "slot")
-    r = _on_shards(lambda xl, rl: tuple(route_fn(xl, rl)[k] for k in keys),
-                  (x, router), [rows] * len(keys))
+    def route_local(xl, rl):
+        r = route_fn(xl, rl)                  # once: the tuple takes its keys
+        return tuple(r[k] for k in keys)
+    r = _on_shards(route_local, (x, router), [rows] * len(keys))
     route = dict(zip(keys, r))
     wdims = [w.placements for w in weights]
     partial = tuple(Partial() if any(isinstance(wp[i], Shard) for wp in wdims)
@@ -686,3 +708,196 @@ def moe_on_shards(route_fn, experts_fn, x, router, weights):
         (x, route["table"], route["wtab"], route["slot"], *weights),
         [partial])
     return y, route
+
+
+# --------------------------------------------------------------------------
+# serving on a mesh: the sequence-sharded KV cache
+# --------------------------------------------------------------------------
+def refuse_serving(cfg: ModelConfig):
+    """Raise ``NotImplementedError`` for the caches the serving steps do
+    not run on a mesh yet (``ROADMAP.md``, A.12): the Mamba and RG-LRU
+    decode states, the encoder-decoder's cross cache, the int8 cache."""
+    kinds = {k for pattern, _ in cfg.stages() for k in pattern}
+    missing = [what for cond, what in (
+        ("mamba" in kinds, "the Mamba decode state"),
+        ("rec" in kinds, "the RG-LRU decode state"),
+        (cfg.is_encoder_decoder, "the encoder-decoder's cross cache"),
+        (cfg.kv_quant == "int8", "the int8 KV cache")) if cond]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the serving steps do not run {', '.join(missing)} "
+            "on a mesh yet (see ROADMAP.md, A.12)")
+
+
+def _chunk_of(places, dmesh, dim: int):
+    """(index, count): this rank's chunk of tensor dim ``dim`` among the
+    chunks the mesh dims that shard it cut, in mesh order (as DTensor
+    lays them out)."""
+    coord = dmesh.get_coordinate()
+    idx, n = 0, 1
+    for mdim, p in enumerate(places):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx, n = idx * dmesh.size(mdim) + coord[mdim], n * dmesh.size(mdim)
+    return idx, n
+
+
+def zeros(shape, dtype, mesh, spec, device):
+    """A zero ``DTensor`` of ``shape`` placed by ``spec``: each rank makes
+    its own shard, the full tensor exists nowhere."""
+    dm = mesh.device_mesh
+    places = placements(mesh, spec, len(shape))
+    local = list(shape)
+    for mdim, p in enumerate(places):
+        if isinstance(p, Shard):
+            if local[p.dim] % dm.size(mdim):
+                raise ValueError(f"zeros: dim {p.dim} of {tuple(shape)} does "
+                                 f"not divide over the mesh {mesh.shape}")
+            local[p.dim] //= dm.size(mdim)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), dm, places,
+        run_check=False, shape=torch.Size(shape),
+        stride=_contiguous_stride(shape))
+
+
+def cache_from_prefill(t, mesh, spec, cache_len: int):
+    """A prompt's keys or values t: (B, S, KH, hd) as a layer's cache leaf
+    of ``cache_len`` positions placed by ``spec`` (the policy's
+    "kv_cache": rows over the data axes, the sequence over the rest).  t
+    is gathered to its rows' placement once (its heads over "model"), and
+    each rank keeps the prompt's positions that fall in its sequence
+    shard, zeros past them."""
+    dm = mesh.device_mesh
+    places = placements(mesh, spec, 4)
+    if tuple(t.placements) != _rows(t):
+        t = t.redistribute(dm, _rows(t))
+    tl = t.to_local()
+    seq, n = _chunk_of(places, dm, 1)
+    if cache_len % n:
+        raise ValueError(f"cache of {cache_len} positions over {n} shards")
+    Ll = cache_len // n
+    s0 = seq * Ll
+    local = tl.new_zeros((tl.shape[0], Ll, *tl.shape[2:]))
+    m = max(0, min(Ll, tl.shape[1] - s0))
+    local[:, :m] = tl[:, s0:s0 + m]
+    shape = (t.shape[0], cache_len, *t.shape[2:])
+    return DTensor.from_local(local, dm, places, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _row_slice(places, dmesh, n_local: int):
+    idx, _ = _chunk_of(places, dmesh, 0)
+    return slice(idx * n_local, (idx + 1) * n_local)
+
+
+def cache_write_on_shards(cache, new, positions):
+    """Write ``new`` (B, C, KH, hd) into the cache leaf (B, L, KH, hd) at
+    the global ``positions`` (B, C) (a plain tensor, the same on every
+    rank), in place: ``new`` is redistributed to the cache's rows
+    (replicated over the sequence axes: C tokens a row), and each rank
+    writes into its local shard the positions it holds and no others,
+    positions past the cache dropped.  No rank reads or copies the rest of
+    the cache."""
+    dm = cache.device_mesh
+    cp = tuple(cache.placements)
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in cp)
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, dm, [Replicate()] * dm.ndim,
+                                 run_check=False)
+    if tuple(new.placements) != rows:
+        new = new.redistribute(dm, rows)
+    loc, nl = cache.to_local(), new.to_local().to(cache.dtype)
+    Bl, Ll = loc.shape[:2]
+    seq, _ = _chunk_of(cp, dm, 1)
+    at = positions[_row_slice(cp, dm, Bl)].long() - seq * Ll
+    r = torch.arange(Bl, device=loc.device)[:, None].expand_as(at)
+    if at.shape[1] == 1:
+        # one token a row: where it falls outside the shard the row's
+        # clamped position is written back as it was (no host sync)
+        atc = at.clamp(0, Ll - 1)
+        keep = ((at >= 0) & (at < Ll))[..., None, None]
+        loc[r, atc] = torch.where(keep, nl, loc[r, atc])
+    else:
+        keep = (at >= 0) & (at < Ll)
+        loc[r[keep], at[keep]] = nl[keep]
+    return cache
+
+
+def merge_shards(outs, lses):
+    """The attention over sequence shards from each shard's o (..., hd)
+    and lse (...) f32: m = max lse, w = exp(lse - m), o = sum w o / sum w;
+    a shard with no valid key (lse -inf) weighs 0.  Returns (o in the
+    shards' dtype, lse f32)."""
+    lse = torch.stack([x.reshape(outs[0].shape[:-1]) for x in lses])
+    m = lse.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    w = torch.exp(lse - m)
+    num = sum(o.float() * wi[..., None] for o, wi in zip(outs, w))
+    den = w.sum(dim=0)
+    out = num / den[..., None].clamp_min(1e-37)
+    return (out.to(outs[0].dtype),
+            (m + torch.log(den)).reshape(lses[0].shape))
+
+
+def _merge_shards(o, lse, dmesh, dims):
+    """``merge_shards`` across the ranks of the sequence's mesh dims
+    ``dims``: each rank's (o, lse), gathered over each of them in turn
+    (one all-gather a mesh dim), merged alike on every rank.  With one
+    shard o is returned as it is."""
+    groups = [dmesh.get_group(i) for i in dims if dmesh.size(i) > 1]
+    if not groups:
+        return o
+    import torch.distributed as dist
+    buf = torch.cat([o.float().flatten(), lse.flatten()])
+    for g in groups:
+        out = buf.new_empty(dist.get_world_size(g) * buf.numel())
+        dist.all_gather_into_tensor(out, buf, group=g)
+        buf = out
+    parts = buf.view(-1, o.numel() + lse.numel()).split(
+        (o.numel(), lse.numel()), dim=1)
+    merged, _ = merge_shards([x.view(o.shape) for x in parts[0]],
+                             [x.view(lse.shape) for x in parts[1]])
+    return merged.to(o.dtype)
+
+
+def attend_on_sequence(fn, q, k, v, q_pos):
+    """Queries q: (B, C, H, hd) (row b's first at global position
+    ``q_pos[b]``, a plain (B,) tensor) against the sequence-sharded cache
+    k, v: (B, L, KH, hd): q is redistributed to the cache's rows with
+    every head, each rank calls ``fn(ql, kl, vl, q_pos_local, k_offset)``
+    -> (o, lse) on its rows and shard (``k_offset`` its shard's first
+    position), and the shards are merged over the sequence's mesh dims.
+    Returns o (B, C, H, hd) placed by the cache's rows.  Chunked prefill
+    passes the plain chunked attention with its log-sum-exp."""
+    dm = k.device_mesh
+    kp = tuple(k.placements)
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in kp)
+    if tuple(q.placements) != rows:
+        q = q.redistribute(dm, rows)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    Bl, Ll = kl.shape[:2]
+    seq, _ = _chunk_of(kp, dm, 1)
+    o, lse = fn(ql, kl, vl, q_pos[_row_slice(kp, dm, Bl)], seq * Ll)
+    o = _merge_shards(o, lse.view(o.shape[:-1]), dm,
+                      [i for i, p in enumerate(kp)
+                       if isinstance(p, Shard) and p.dim == 1])
+    return DTensor.from_local(o, dm, rows, run_check=False, shape=q.shape,
+                              stride=_contiguous_stride(q.shape))
+
+
+def decode_on_shards(fn, q, k, v, pos, window: int):
+    """One query token a row against the sequence-sharded cache: each rank
+    calls ``fn(ql, kl, vl, lo, hi, window=window)`` (the decode kernel's
+    range form, returning (o, lse)) on its rows and shard, with each row's
+    global range [max(0, pos - window + 1), pos] cut to the shard in the
+    shard's positions (empty where it misses the shard), and the shards
+    are merged.  q: (B, 1, H, hd) with every query head; pos (B,) int32,
+    a plain tensor.  Returns o (B, 1, H, hd) placed by the cache's rows."""
+    from repro_torch.kernels.decode_attention.ref import valid_range
+
+    def local(ql, kl, vl, p, k0):
+        lo, hi = valid_range(p - k0, ql.shape[0], window, ql.device)
+        return fn(ql, kl, vl, lo, hi, window=window)
+    return attend_on_sequence(local, q, k, v, pos)

@@ -27,7 +27,11 @@ two cards, decided in the ``cards`` fixture).  On four cards, one f32
 train step of granite-smoke and of mixtral-smoke over a (2, 2) process
 mesh (NCCL, ``tests/torch_sharding_cases.py``) is held to the same step
 on one card (skips below four cards, decided in the ``four_cards``
-fixture).
+fixture); so is the cut mixtral-8x7b's sharded prefill and decode steps
+over a (1, 4) mesh (``tests/torch_sharded_serving_cases.py``).  The
+decode kernel's range form (per-row valid ranges, the log-sum-exp) is
+held against its plain version, and shards of a cache merged against the
+unsharded call.
 """
 
 import numpy as np
@@ -185,6 +189,70 @@ def test_decode_attention_kernel_dense_widths(cuda, H, KH, hd, window, pos,
     torch.cuda.synchronize()
     assert decode_ops.decode_attention.launches == before + 1
     _close(out, decode_attention_ref(q, kc, vc, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,KH,G", [(128, 2, 4), (64, 4, 1), (256, 1, 16)])
+def test_decode_attention_range_kernel(cuda, hd, KH, G, dtype):
+    """The kernel's range form against its plain version: per-row [lo, hi]
+    with a full row, an empty range (hi < lo), a range past the cache's
+    end (clipped), a short one and one of one key; the output at the
+    kernel tolerance and the log-sum-exp within 1e-4, -inf and o = 0 on
+    the empty row."""
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_range_ref)
+    rng = np.random.default_rng(11)
+    B, S, H = 5, 700, KH * G
+    q = _t(rng, (B, 1, H, hd), dtype, cuda)
+    kc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    vc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    lo = torch.tensor([0, 100, 300, 50, 699], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([699, 99, 900, 60, 699], dtype=torch.int32,
+                      device=cuda)
+    before = decode_ops.decode_attention.launches
+    out, lse = decode_ops.decode_attention_range(q, kc, vc, lo, hi)
+    torch.cuda.synchronize()
+    assert decode_ops.decode_attention.launches == before + 1
+    ref, ref_lse = decode_attention_range_ref(q, kc, vc, lo, hi)
+    _close(out, ref, dtype)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    assert torch.isinf(lse[1]).all() and (out[1] == 0).all()
+    fin = torch.isfinite(ref_lse)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_shards_merge_to_the_whole(cuda, dtype):
+    """A 4 x 4,096-slot cache cut into 4 sequence shards: each shard's
+    range call (its rows' windows cut to the shard, some empty, one window
+    across two shards) merged by ``sharding.merge_shards`` equals the
+    unsharded call at the kernel tolerance, and the merged lse the plain
+    version's over the whole range within 1e-4."""
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_range_ref, valid_range)
+    from repro_torch.models.sharding import merge_shards
+    rng = np.random.default_rng(12)
+    B, S, H, KH, hd, window, n = 4, 4096, 32, 8, 128, 512, 4
+    q = _t(rng, (B, 1, H, hd), dtype, cuda)
+    kc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    vc = _t(rng, (B, S, KH, hd), dtype, cuda)
+    pos = torch.tensor([1500, 1100, 2900, 4000], dtype=torch.int32,
+                       device=cuda)
+    Ls = S // n
+    outs = [decode_ops.decode_attention_range(
+        q, kc[:, i * Ls:(i + 1) * Ls].contiguous(),
+        vc[:, i * Ls:(i + 1) * Ls].contiguous(),
+        *valid_range(pos - i * Ls, B, window, cuda), window=window)
+        for i in range(n)]
+    merged, lse = merge_shards([o for o, _ in outs], [l for _, l in outs])
+    whole = decode_ops.decode_attention(q, kc, vc, pos, window=window)
+    _close(merged, whole, dtype)
+    _, ref_lse = decode_attention_range_ref(
+        q, kc, vc, *valid_range(pos, B, window, cuda))
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    # row 0's window [989, 1500] spans shards 0 and 1; shards 2, 3 empty
+    assert [bool(torch.isfinite(l[0]).all()) for _, l in outs] == [
+        True, True, False, False]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -897,6 +965,27 @@ def test_sharded_train_step_over_four_cards(four_cards, tmp_path):
         for key in ("grads_err", "m_err", "v_err"):
             assert r[key] <= 1e-4, (arch, key, r)
         assert r["device"] == "cuda:0", (arch, r)
+
+
+def test_sharded_serving_over_four_cards(four_cards, tmp_path):
+    """mixtral-8x7b at full width cut to 2 layers in f32: the prefill of 4
+    prompts of 300 tokens into a 1,024-slot cache and 4 greedy decode
+    steps on mesh (1, 4) of four processes under NCCL (the cache's
+    sequence over the cards, the decode kernel on each card's shard,
+    merged) against the same steps on one card: every step's logits
+    within 1e-4, the tokens equal, the decode kernel launched once a layer
+    a step on every card."""
+    import json
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_sharded_serving_cases as C
+    out = tmp_path / "serve_cards.json"
+    C.cards_main(out)
+    res = json.loads(out.read_text())
+    assert max(res["logits_err"]) <= 1e-4, res
+    assert all(res["tokens_equal"]), res
+    assert res["decode_launches"] == [[2] * 4] * 4, res
 
 
 def _leaves(tree, path=""):

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and no ``repro`` import anywhere in
 ``src/repro_torch/``, ``chip_smoke.py`` or the port's tools
-(``tools/sharded_topk_cards.py``, ``tools/sharded_train_cards.py``), and
+(``tools/sharded_topk_cards.py``, ``tools/sharded_train_cards.py``,
+``tools/sharded_serve_cards.py``), and
 its entry points run on the GPU by default, raising rather than falling
 back to the CPU."""
 
@@ -21,7 +22,8 @@ REPO = Path(__file__).resolve().parents[1]
 # which is the JAX package's)
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "sharded_topk_cards.py",
-    REPO / "tools" / "sharded_train_cards.py"]
+    REPO / "tools" / "sharded_train_cards.py",
+    REPO / "tools" / "sharded_serve_cards.py"]
 
 
 def _foreign_imports(path: Path):

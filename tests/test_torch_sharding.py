@@ -21,10 +21,10 @@ each continued loss to the uninterrupted run's at 1e-3 relative, the
 reference's own tolerance for its elastic case; the bf16 losses to the
 reference's at 6e-2 (the bf16 trajectory tolerance of
 ``tests/test_torch_training_steps.py``); a mesh step's loss to the
-one-device step's at ``LOSS_RTOL``, its gradients to ``GRAD_TOL`` 1e-4 of
-each leaf's largest magnitude and its updated weights within 2 lr (the
-most a first AdamW update can differ by); the padded forward at the f32
-model tolerance 1e-4.  The null policy is held bitwise to the
+one-device step's at ``LOSS_RTOL``, its gradients and AdamW's moments after
+it to ``GRAD_TOL`` 1e-4 of each leaf's largest magnitude, and the second
+step's loss at ``LOSS_RTOL``; the padded forward at the f32 model
+tolerance 1e-4.  The null policy is held bitwise to the
 port as it was before the hooks (the commit ``PRE_HOOKS``, read from
 git).  The processes each test starts carry a timeout.
 """
